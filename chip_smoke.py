@@ -7,13 +7,20 @@ Phases (any failure raises and the script exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the synthesis kernel from linne_tpu_torch/csrc/synthesis.cu;
   3. kernel: compare the kernel with its plain torch version on the card,
-     bit for bit, and time both at the layer-1 group of a 60 s stereo track;
+     bit for bit, at the edge shapes of its design (taps per unit 1..128
+     around the 32-lane chunk, rows shorter than a chunk, ragged chunks, a
+     row count that is not a multiple of the warps per block), and time
+     both at the layer-1 group of a 60 s stereo track, beside the bound;
   4. main path: TorchEncoder.encode_many on a seeded 4 x 30 s stereo corpus
      at preset 7, then TorchDecoder.decode_many, both on the card; every
      stream must decode losslessly (also under the host Decoder) and the
      decode must have launched the kernel;
-  5. CLI: `python -m linne_tpu_torch.cli -e -m 7` on a 10 s WAV;
-  6. cross-device: one 10 s track encoded on the CPU and on the card.
+  5. decode groups: every (rows, ns, npu) launch of that decode, recorded
+     in a second decode, checked bit for bit against the plain version and
+     timed (CUDA events) beside its bound; then one decode under
+     torch.profiler for the device-time breakdown;
+  6. CLI: `python -m linne_tpu_torch.cli -e -m 7` on a 10 s WAV;
+  7. cross-device: one 10 s track encoded on the CPU and on the card.
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
@@ -31,12 +38,13 @@ import time
 import numpy as np
 import torch
 
-from linne_tpu.codec.decoder import Decoder
-from linne_tpu.codec.params import EncodeParameter
-from linne_tpu.constants import CH_PROCESS_MS
-from linne_tpu.io.wav import write_wav
+from linne_tpu_torch.codec.decoder import Decoder
+from linne_tpu_torch.codec import torch_decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
+from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
+from linne_tpu_torch.constants import CH_PROCESS_MS
+from linne_tpu_torch.io.wav import write_wav
 from linne_tpu_torch.ops import _kernels
 from linne_tpu_torch.ops import synthesis as S
 
@@ -44,6 +52,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 RATE = 44100
 SPB = 10240
 PRESET = 7
+
+# H100 SXM rates for the kernel's bound: int32 multiply-add issue
+# (64 IMAD/clk/SM x 132 SMs x 1.98 GHz) and HBM3 bandwidth
+IMAD_PER_S = 64 * 132 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
 
 
 def make_track(seconds: float, seed: int) -> np.ndarray:
@@ -104,38 +117,64 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def synth_bound(rows: int, ns: int, npu: int):
+    """(ms, "operations" | "bytes"): the least time the card needs for one
+    synthesize_rows call, the larger of its multiply-adds over the IMAD
+    issue rate and its bytes (x, coefs, rshift read once, y written once)
+    over the memory rate. Rows with ns <= npu are copies: no MACs."""
+    macs = rows * max(ns - npu, 0) * npu
+    nbytes = 4 * (2 * rows * ns + rows * npu + rows)
+    t_ops, t_bytes = macs / IMAD_PER_S, nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def check_kernel(x, c, rs, what) -> int:
+    """Kernel against the plain version on the same inputs; returns the
+    max abs difference (0, or the script fails)."""
+    got = S.synthesize_rows(x, c, rs)
+    torch.cuda.synchronize()
+    want = S.synthesize_rows_ref(x, c, rs)
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    require(torch.equal(got, want),
+            f"kernel != plain version at {what} (max err {err})")
+    return err
+
+
 def kernel_phase() -> dict:
     max_err = 0
     # the shapes of tests/test_tpu_kernels.py, a row count that is not a
     # multiple of the block, one tap, and rows with ns <= npu
-    for rows, ns, npu in ((4, 2048, 32), (130, 1024, 8), (64, 2560, 128),
-                          (8, 10240, 128), (45, 777, 1), (16, 64, 64),
-                          (9, 16, 128)):
+    shapes = [(4, 2048, 32), (130, 1024, 8), (64, 2560, 128),
+              (8, 10240, 128), (45, 777, 1), (16, 64, 64), (9, 16, 128)]
+    # the design's edges: taps around the 32-lane chunk, rows shorter than
+    # a chunk, ragged last chunks; 13 rows is not a multiple of the 4
+    # warps per block
+    for npu in (1, 2, 4, 16, 31, 32, 33, 64, 127, 128):
+        shapes += [(13, ns, npu) for ns in sorted({npu + 1, 33, 777, 10240})]
+    for rows, ns, npu in shapes:
         x, c, rs = synth_inputs(rows, ns, npu, rows + ns + npu)
-        got = S.synthesize_rows(x, c, rs)
-        torch.cuda.synchronize()
-        want = S.synthesize_rows_ref(x, c, rs)
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        require(torch.equal(got, want),
-                f"kernel != plain version at {(rows, ns, npu)} (max err {err})")
-    print("kernel bit-equal to synthesize_rows_ref at 7 shapes")
+        max_err = max(max_err, check_kernel(x, c, rs, (rows, ns, npu)))
+    print(f"kernel bit-equal to synthesize_rows_ref at {len(shapes)} shapes")
 
     # layer-1 u=1 group of one 60 s stereo track: 258 blocks x 2 channels
     x, c, rs = synth_inputs(516, 10240, 128, 1)
-    kernel_ms = cuda_ms(lambda: S.synthesize_rows(x, c, rs), reps=10)
+    kernel_ms = cuda_ms(lambda: S.synthesize_rows(x, c, rs), reps=20)
     plain_ms = cuda_ms(lambda: S.synthesize_rows_ref(x, c, rs), reps=2)
-    got = S.synthesize_rows(x, c, rs)
-    want = S.synthesize_rows_ref(x, c, rs)
-    require(torch.equal(got, want), "kernel != plain version at (516,10240,128)")
-    print(f"synthesize_rows (516, 10240, 128): kernel {kernel_ms:.3f} ms, "
-          f"plain torch {plain_ms:.3f} ms")
+    max_err = max(max_err, check_kernel(x, c, rs, (516, 10240, 128)))
+    bound_ms, bound_by = synth_bound(516, 10240, 128)
+    print(f"synthesize_rows (516, 10240, 128): kernel {kernel_ms:.4f} ms, "
+          f"plain torch {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), kernel at {100 * bound_ms / kernel_ms:.1f} % of "
+          "the bound")
 
     # first-minimum ties, which ridge and Rice-order selection rely on
     loss = torch.tensor([[3.0, 1.0], [1.0, 1.0], [1.0, 0.5]], device="cuda")
     require(torch.argmin(loss, dim=0).tolist() == [1, 2],
             "torch.argmin on the card does not take the first minimum")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def lossless(sig: np.ndarray, decoded) -> bool:
@@ -143,7 +182,7 @@ def lossless(sig: np.ndarray, decoded) -> bool:
                for ch in range(sig.shape[0]))
 
 
-def main_path_phase() -> int:
+def main_path_phase():
     tracks = [make_track(30.0, seed) for seed in range(4)]
     lengths = [t.shape[1] for t in tracks]
     seconds = sum(lengths) / RATE
@@ -181,7 +220,77 @@ def main_path_phase() -> int:
           f"({seconds / (t2 - t1):.1f}x realtime), "
           f"size {100.0 * out_bytes / in_bytes:.3f} % of PCM, "
           f"kernel launches {launches}")
-    return launches
+    return launches, datas
+
+
+def decode_groups_phase(datas) -> int:
+    """Record every synthesize_rows call of one corpus decode, then check
+    each against the plain version and time it alone. Returns the max abs
+    difference."""
+    calls = []
+    real = torch_decoder.synthesize_rows
+
+    def recording(x, c, rs):
+        calls.append((x.clone(), c.clone(), rs.clone()))
+        return real(x, c, rs)
+
+    torch_decoder.synthesize_rows = recording
+    try:
+        TorchDecoder(device="cuda").decode_many(datas)
+    finally:
+        torch_decoder.synthesize_rows = real
+    torch.cuda.synchronize()
+    max_err = 0
+    total_ms = total_bound = 0.0
+    for x, c, rs in calls:
+        (rows, ns), npu = x.shape, c.shape[1]
+        max_err = max(max_err, check_kernel(x, c, rs, (rows, ns, npu)))
+        ms = cuda_ms(lambda: S.synthesize_rows(x, c, rs), reps=10)
+        bound_ms, bound_by = synth_bound(rows, ns, npu)
+        total_ms += ms
+        total_bound += bound_ms
+        print(f"decode group (rows {rows}, ns {ns}, npu {npu}): kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"decode groups: {len(calls)} launches, bit-equal to the plain "
+          f"version, kernel {total_ms:.4f} ms in all, bound "
+          f"{total_bound:.4f} ms")
+    return max_err
+
+
+def decode_profile_phase(datas) -> None:
+    """Device-time breakdown of one warm corpus decode (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dec = TorchDecoder(device="cuda")
+    dec.decode_many(datas)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec.decode_many(datas)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernel_us = copy_us = other_us = 0.0
+    for ev in prof.key_averages():
+        # device-side events only: a host op's device time repeats theirs
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if "synth_rows_kernel" in ev.key:
+            kernel_us += dev_us
+        elif "Memcpy" in ev.key or "memcpy" in ev.key:
+            copy_us += dev_us
+        else:
+            other_us += dev_us
+    device_ms = (kernel_us + copy_us + other_us) / 1e3
+    if device_ms == 0:
+        print("decode profile: no device time in the trace (not measured)")
+        return
+    print(f"decode profile: wall {wall_ms:.1f} ms (profiled), device "
+          f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f} % busy): "
+          f"synth_rows_kernel {kernel_us / 1e3:.3f} ms, copies "
+          f"{copy_us / 1e3:.3f} ms, other {other_us / 1e3:.3f} ms")
 
 
 def cli_phase(tmp: pathlib.Path) -> None:
@@ -239,7 +348,9 @@ def main() -> int:
     print(f"built synthesis kernel in {time.perf_counter() - t0:.2f} s")
 
     kernel = kernel_phase()
-    launches = main_path_phase()
+    launches, datas = main_path_phase()
+    group_err = decode_groups_phase(datas)
+    decode_profile_phase(datas)
     with tempfile.TemporaryDirectory() as tmp:
         cli_phase(pathlib.Path(tmp))
     cross_device_phase()
@@ -250,9 +361,12 @@ def main() -> int:
         "source": "linne_tpu_torch/csrc/synthesis.cu",
         "replaces": "linne_tpu/ops/synthesis.py:46",
         "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
+        "max_abs_err": max(kernel["max_abs_err"], group_err),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"],
+        "library_ms": None,  # no PyTorch call computes this recurrence
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,10 +18,10 @@ import os
 import sys
 import time
 
-from linne_tpu.codec.params import DecoderConfig, EncodeParameter, EncoderConfig
-from linne_tpu.constants import CH_PROCESS_MS, CH_PROCESS_NONE
-from linne_tpu.format.header import FormatError
-from linne_tpu.io.wav import read_wav, write_wav
+from .codec.params import DecoderConfig, EncodeParameter, EncoderConfig
+from .constants import CH_PROCESS_MS, CH_PROCESS_NONE
+from .format.header import FormatError
+from .io.wav import read_wav, write_wav
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -89,7 +89,7 @@ def do_encode(args) -> int:
 
     t0 = time.perf_counter()
     if args.exact:
-        from linne_tpu.exact.encoder import ExactEncoder
+        from .exact.encoder import ExactEncoder
 
         enc = ExactEncoder(EncoderConfig())
     else:
@@ -114,7 +114,7 @@ def do_encode(args) -> int:
 
 
 def do_decode(args) -> int:
-    from linne_tpu.codec.decoder import Decoder
+    from .codec.decoder import Decoder
 
     with open(args.input, "rb") as f:
         data = f.read()
@@ -135,7 +135,7 @@ def do_decode(args) -> int:
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.version:
-        from linne_tpu.constants import CODEC_VERSION
+        from .constants import CODEC_VERSION
 
         print("LINNE -- LInear-predictive Neural Net Encoder "
               f"Version.{CODEC_VERSION} (linne_tpu_torch)")

@@ -29,9 +29,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from linne_tpu import native
-from linne_tpu.codec.params import EncodeParameter, EncoderConfig, compress_viable
-from linne_tpu.constants import (
+from .. import native
+from .params import EncodeParameter, EncoderConfig, compress_viable
+from ..constants import (
     BLOCK_TYPE_COMPRESS,
     BLOCK_TYPE_RAW,
     BLOCK_TYPE_SILENT,
@@ -42,13 +42,13 @@ from linne_tpu.constants import (
     PREEMPH_COEF_SHIFT,
     RSHIFT_BITWIDTH,
 )
-from linne_tpu.format.bitstream import BitWriter
-from linne_tpu.format.block import frame_block, write_raw_payload
-from linne_tpu.format.header import LinneHeader
-from linne_tpu.format.huffman import get_codebook
-from linne_tpu.format.rice import encode_plane_with_params
-from linne_tpu.format.zigzag import zigzag_encode_array, zigzag_encode_scalar
-from linne_tpu.presets import PRESETS
+from ..format.bitstream import BitWriter
+from ..format.block import frame_block, write_raw_payload
+from ..format.header import LinneHeader
+from ..format.huffman import get_codebook
+from ..format.rice import encode_plane_with_params
+from ..format.zigzag import zigzag_encode_array, zigzag_encode_scalar
+from ..presets import PRESETS
 
 from ..ops import ANALYSIS_DTYPE
 from ..ops import analysis as A
@@ -363,7 +363,7 @@ class TorchEncoder:
         tail gets a fresh encoder: the reference encodes each track with
         its own encoder state, so tail bytes do not depend on other tracks
         and tails can encode on worker threads in any order."""
-        from linne_tpu.exact.encoder import ExactEncoder
+        from ..exact.encoder import ExactEncoder
 
         enc = ExactEncoder(self.config)
         enc.set_encode_parameter(self.parameter)

@@ -11,7 +11,7 @@ De-emphasis and the MS inverse run in the native library (or numpy).
 
 `decode_many` pools the rows of a whole corpus into the same launches, so
 a launch carries more independent recurrences as the corpus grows. For
-single-block latency use linne_tpu.codec.decoder / codec.streaming.
+single-block latency use codec.decoder.
 """
 
 from __future__ import annotations
@@ -23,22 +23,22 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from linne_tpu import native
-from linne_tpu.codec.params import DecoderConfig
-from linne_tpu.constants import (
+from .. import native
+from .params import DecoderConfig
+from ..constants import (
     BLOCK_TYPE_RAW,
     BLOCK_TYPE_SILENT,
     CH_PROCESS_MS,
     HEADER_SIZE,
 )
-from linne_tpu.format.block import (
+from ..format.block import (
     BLOCK_HEADER_SIZE,
     parse_block_header,
     read_raw_payload,
 )
-from linne_tpu.format.header import FormatError, LinneHeader, check_stream_capacity
-from linne_tpu.format.huffman import get_codebook
-from linne_tpu.presets import PRESETS
+from ..format.header import FormatError, LinneHeader, check_stream_capacity
+from ..format.huffman import get_codebook
+from ..presets import PRESETS
 
 from ..ops.synthesis import synthesize_rows
 
@@ -104,7 +104,7 @@ class TorchDecoder:
     def _unpack_payload_py(payload, nch, n, bps, layer_num_params, cb):
         """Pure-python compress-payload unpack in the same tuple layout as
         native.unpack_compress_payload (no-compiler fallback)."""
-        from linne_tpu.format.block import read_compress_payload
+        from ..format.block import read_compress_payload
 
         side, residual_list, consumed = read_compress_payload(
             payload, nch, n, bps, layer_num_params, cb)
@@ -225,7 +225,7 @@ class TorchDecoder:
     @staticmethod
     def _assemble(header, blocks, planes, si) -> List[np.ndarray]:
         """No-native finishing: de-emphasis + MS inverse per block."""
-        from linne_tpu.exact.filters import multistage_deemphasis
+        from ..exact.filters import multistage_deemphasis
 
         nch = header.num_channels
         out = [np.zeros(header.num_samples, dtype=np.int32)

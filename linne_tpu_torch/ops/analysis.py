@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from linne_tpu.constants import FLT_EPSILON
+from ..constants import FLT_EPSILON
 
 from .windows import WINDOW_SIN, WINDOW_WELCH, window_weights
 

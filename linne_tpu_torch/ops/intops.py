@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from linne_tpu.constants import PREEMPH_COEF_SHIFT
+from ..constants import PREEMPH_COEF_SHIFT
 
 
 def ms_transform(buf: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from linne_tpu.constants import LOG2_MAX_NUM_PARTITIONS, RICE_PARAMETER_BITS
+from ..constants import LOG2_MAX_NUM_PARTITIONS, RICE_PARAMETER_BITS
 
 _OPTX = 0.5127629514437670454896078808815218508243560791015625
 _LOG_OPTX = math.log(_OPTX)

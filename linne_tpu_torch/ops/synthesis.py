@@ -7,9 +7,10 @@ codec: y[t] = x[t] - ((half + sum_j c[j]*y[t-npu+j]) >> rshift), and the
 per-step arithmetic shift makes state-space blocking impossible bit-exactly.
 
 `synthesize_rows` launches the hand-written CUDA kernel
-(csrc/synthesis.cu) on CUDA tensors and runs `synthesize_rows_ref`, the
-plain torch version, on CPU tensors. There is no fallback from one to the
-other.
+(csrc/synthesis.cu: one warp per row, 32 steps per chunk, the sum split
+into the terms that are final and those of the chunk in flight) on CUDA
+tensors and runs `synthesize_rows_ref`, the plain torch version, on CPU
+tensors. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from . import _kernels
 # Launches of the CUDA kernel since import (or since a caller reset it);
 # incremented only where the kernel is launched.
 KERNEL_LAUNCHES = 0
+
+# Taps per unit the kernel takes: the format's largest layer order.
+KERNEL_MAX_NPU = 128
 
 _synth_fn = None
 
@@ -94,6 +98,9 @@ def synthesize_rows(x: torch.Tensor, coefs: torch.Tensor,
         return synthesize_rows_ref(x, coefs, rshift)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if coefs.shape[1] > KERNEL_MAX_NPU:
+        raise ValueError(f"npu {coefs.shape[1]} exceeds the kernel's "
+                         f"{KERNEL_MAX_NPU} taps")
     out = torch.empty_like(x)
     rows, ns = x.shape
     if out.numel() == 0:

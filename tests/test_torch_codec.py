@@ -9,11 +9,13 @@ Rice parameter changes the stream.
 import numpy as np
 import pytest
 
-from linne_tpu.codec.decoder import Decoder
+from linne_tpu.codec import params as jax_params
 from linne_tpu.codec.encoder import TpuEncoder
-from linne_tpu.codec.params import EncodeParameter
-from linne_tpu.constants import CH_PROCESS_MS
+from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
+from linne_tpu_torch.codec.params import EncodeParameter
+from linne_tpu_torch.constants import CH_PROCESS_MS
+from linne_tpu_torch.format.header import LinneHeader
 
 # (preset, block size): presets 0, 4 and 7 cover all three layer structures
 _CASES = [(0, 2048), (4, 2560), (7, 2560)]
@@ -32,8 +34,8 @@ def _signal(n, seed):
     return sig
 
 
-def _param(preset, spb):
-    return EncodeParameter(
+def _param(preset, spb, cls=EncodeParameter):
+    return cls(
         num_channels=2, bits_per_sample=16, sampling_rate=44100,
         num_samples_per_block=spb, preset=preset,
         ch_process_method=CH_PROCESS_MS)
@@ -49,7 +51,8 @@ def jax_streams():
         n = 3 * spb + 700
         sig = _signal(n, preset)
         enc = TpuEncoder(batch_blocks=4, tail_mode="device")
-        enc.set_encode_parameter(_param(preset, spb))
+        enc.set_encode_parameter(
+            _param(preset, spb, jax_params.EncodeParameter))
         for mode in ("device", "host"):
             enc.tail_mode = mode
             out[(preset, mode)] = enc.encode_whole([sig[0], sig[1]], n)
@@ -92,8 +95,6 @@ def test_encode_block_matches_encode_whole():
     enc = TorchEncoder(device="cpu")
     enc.set_encode_parameter(_param(0, spb))
     whole = enc.encode_whole([sig[0], sig[1]], n)
-    from linne_tpu.format.header import LinneHeader
-
     out = bytearray(LinneHeader(
         num_channels=2, num_samples=n, sampling_rate=44100,
         bits_per_sample=16, num_samples_per_block=spb, preset=0,

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from linne_tpu.codec.decoder import Decoder
-from linne_tpu.codec.params import EncodeParameter
+from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
+from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.ops import synthesis as S
 
@@ -35,9 +35,17 @@ def _synth_inputs(rows, ns, npu):
     return tuple(torch.from_numpy(a).cuda() for a in (x, c, rs))
 
 
+# the design's edges: taps around the 32-lane chunk, rows shorter than a
+# chunk, ragged last chunks; 13 rows is not a multiple of the 4 warps per
+# block
+_EDGES = [(13, ns, npu)
+          for npu in (1, 2, 4, 16, 31, 32, 33, 64, 127, 128)
+          for ns in sorted({npu + 1, 33, 777, 10240})]
+
+
 @pytest.mark.parametrize("rows,ns,npu", [
     (4, 2048, 32), (130, 1024, 8), (64, 2560, 128), (8, 10240, 128),
-    (33, 16, 16), (7, 300, 3), (5, 8, 128)])
+    (33, 16, 16), (7, 300, 3), (5, 8, 128)] + _EDGES)
 def test_kernel_matches_plain_version(rows, ns, npu):
     _require_card()
     x, c, rs = _synth_inputs(rows, ns, npu)
@@ -46,6 +54,15 @@ def test_kernel_matches_plain_version(rows, ns, npu):
     torch.cuda.synchronize()
     assert S.KERNEL_LAUNCHES == before + 1
     assert torch.equal(got, S.synthesize_rows_ref(x, c, rs))
+
+
+def test_kernel_refuses_more_taps_than_it_holds():
+    _require_card()
+    x, c, rs = _synth_inputs(2, 300, S.KERNEL_MAX_NPU + 1)
+    before = S.KERNEL_LAUNCHES
+    with pytest.raises(ValueError):
+        S.synthesize_rows(x, c, rs)
+    assert S.KERNEL_LAUNCHES == before
 
 
 def _track(n, seed):

@@ -13,13 +13,15 @@ import numpy as np
 import pytest
 
 from conftest import REPO_ROOT, WAVEFORMS
-from linne_tpu.codec.decoder import Decoder
-from linne_tpu.codec.params import EncodeParameter
+from linne_tpu.codec.decoder import Decoder as JaxDecoder
 from linne_tpu.codec.tpu_decoder import TpuDecoder
-from linne_tpu.constants import BLOCK_TYPE_COMPRESS, BLOCK_TYPE_RAW, BLOCK_TYPE_SILENT, HEADER_SIZE
-from linne_tpu.format.block import parse_block_header
-from linne_tpu.io.wav import read_wav, write_wav
+from linne_tpu_torch import native
+from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
+from linne_tpu_torch.codec.params import EncodeParameter
+from linne_tpu_torch.constants import BLOCK_TYPE_COMPRESS, BLOCK_TYPE_RAW, BLOCK_TYPE_SILENT, HEADER_SIZE
+from linne_tpu_torch.format.block import parse_block_header
+from linne_tpu_torch.io.wav import read_wav, write_wav
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.ops import synthesis as S
 
@@ -71,7 +73,7 @@ def test_decode_many_equals_decoder_and_tpu_decoder(corpus):
     assert S.KERNEL_LAUNCHES == before  # CPU rows take the plain version
     theirs = TpuDecoder().decode_many(datas)
     for sig, data, o, t in zip(sigs, datas, ours, theirs):
-        host = Decoder().decode_whole(data)
+        host = JaxDecoder().decode_whole(data)
         for ch in range(sig.shape[0]):
             assert np.array_equal(o[ch], sig[ch])
             assert np.array_equal(o[ch], host[ch])
@@ -80,8 +82,6 @@ def test_decode_many_equals_decoder_and_tpu_decoder(corpus):
 
 def test_decode_without_native_library(corpus, monkeypatch):
     """The no-compiler fallback: pure-Python unpack and finishing."""
-    import linne_tpu.native as native
-
     sigs, datas = corpus
     monkeypatch.setattr(native, "available", lambda: False)
     outs = TorchDecoder(device="cpu").decode_many(datas[:2])
@@ -111,7 +111,7 @@ def test_waveform_roundtrip(wf, n, ch, bps, preset):
     sig = WAVEFORMS[wf](n, ch, bps)
     data = _encode(sig, preset, bps)
     out = TorchDecoder(device="cpu").decode_whole(data)
-    host = Decoder().decode_whole(data)
+    host = JaxDecoder().decode_whole(data)
     for c in range(ch):
         assert np.array_equal(out[c], sig[c])
         assert np.array_equal(host[c], sig[c])
