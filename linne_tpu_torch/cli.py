@@ -3,9 +3,11 @@
 Same flag surface as linne_tpu.cli (reference:
 tools/linne_codec/linne_codec.c:15-33). `-e` runs the batched TorchEncoder
 (on CUDA unless `--device` says otherwise), `-d` the host Decoder,
-`--exact` the byte-exact host ExactEncoder. Learning (`-l`), AF refinement
-(`-a N`), `--exact-device` and `--threads` are not ported yet: they exit
-with code 2.
+`--exact` the byte-exact host ExactEncoder (`--threads N`: its per-block
+fitting on N host threads, ParallelExactEncoder), `--exact-device` the
+byte-exact DeviceExactEncoder with the per-block fitting on `--device`.
+Learning (`-l`) and AF refinement (`-a N`) work on the three byte-exact
+paths; the batched encoder does not take them yet and exits with code 2.
 
 Usage:  python -m linne_tpu_torch.cli -e [-m 4] in.wav out.lnn
         python -m linne_tpu_torch.cli -d out.lnn restored.wav
@@ -33,24 +35,29 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--mode", type=int, default=0,
                    help="Compress mode: 0(fast) .. 7(high compression)")
     p.add_argument("-l", "--enable-learning", action="store_true",
-                   help="Gradient-train the predictor (not ported yet)")
+                   help="Gradient-train the predictor while encoding "
+                        "(byte-exact paths only)")
     p.add_argument("-a", "--auxiliary-function-iteration", type=int,
                    default=0, metavar="N",
-                   help="Auxiliary-function method iterations (not ported "
-                        "yet)")
+                   help="Auxiliary-function method iteration count "
+                        "(byte-exact paths only)")
     p.add_argument("-c", "--no-crc-check", action="store_true",
                    help="Do NOT check CRC16 when decoding")
     p.add_argument("--exact", action="store_true",
                    help="Use the bit-exact host encoder (byte-identical "
                         "with the reference C encoder)")
     p.add_argument("--exact-device", action="store_true",
-                   help="Bit-exact encode with device fitting (not ported "
-                        "yet)")
+                   help="Bit-exact encode with the per-block network "
+                        "fitting batched on --device (DeviceExactEncoder; "
+                        "-a refits and -l training run host-side around "
+                        "the device fit)")
     p.add_argument("--threads", type=int, default=None, metavar="N",
-                   help="Threaded exact encode (not ported yet)")
+                   help="With --exact: run the per-block fitting (-l "
+                        "training and -a refits included) on N host "
+                        "threads, bytes unchanged (ParallelExactEncoder)")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the batched encoder (default "
-                        "cuda)")
+                   help="torch device of the batched and --exact-device "
+                        "encoders (default cuda)")
     p.add_argument("-V", "--verbose", action="store_true")
     p.add_argument("-v", "--version", action="store_true",
                    help="Show version information")
@@ -60,15 +67,14 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args):
-    """The name of the first requested feature this port lacks, or None."""
+    """The name of the first requested feature this port lacks, or None:
+    the batched encoder does not take -l or -a yet."""
+    if not args.encode or args.exact or args.exact_device:
+        return None
     if args.enable_learning:
         return "-l"
     if args.auxiliary_function_iteration:
         return "-a"
-    if args.exact_device:
-        return "--exact-device"
-    if args.threads is not None:
-        return "--threads"
     return None
 
 
@@ -81,14 +87,34 @@ def do_encode(args) -> int:
         preset=args.mode,
         ch_process_method=(CH_PROCESS_MS if fmt.num_channels >= 2
                            else CH_PROCESS_NONE),
+        enable_learning=args.enable_learning,
+        num_afmethod_iterations=args.auxiliary_function_iteration,
     )
+    if args.threads is not None:
+        if not args.exact:
+            print("error: --threads requires --exact (the batched and "
+                  "--exact-device paths manage their own parallelism)",
+                  file=sys.stderr)
+            return 1
+        if args.threads < 1:
+            print(f"error: --threads must be >= 1 (got {args.threads})",
+                  file=sys.stderr)
+            return 1
 
     def progress(done, total):  # per-block/batch progress like the C CLI
         print(f"progress... {100.0 * done / total:.2f}% \r", end="",
               flush=True)
 
     t0 = time.perf_counter()
-    if args.exact:
+    if args.exact_device:
+        from .exact.device_encoder import DeviceExactEncoder
+
+        enc = DeviceExactEncoder(EncoderConfig(), device=args.device)
+    elif args.exact and args.threads:
+        from .exact.parallel_encoder import ParallelExactEncoder
+
+        enc = ParallelExactEncoder(EncoderConfig(), num_threads=args.threads)
+    elif args.exact:
         from .exact.encoder import ExactEncoder
 
         enc = ExactEncoder(EncoderConfig())
@@ -146,7 +172,8 @@ def main(argv=None) -> int:
         return 1
     missing = _not_ported(args)
     if missing is not None:
-        print(f"error: {missing} is not ported yet", file=sys.stderr)
+        print(f"error: {missing} is not ported yet to the batched encoder "
+              "(use --exact or --exact-device)", file=sys.stderr)
         return 2
     try:
         return do_encode(args) if args.encode else do_decode(args)

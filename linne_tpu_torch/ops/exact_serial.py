@@ -1,0 +1,257 @@
+"""The strict float64 serial chains of the byte-exact device encoder.
+
+The JAX package ran these sums as `lax.scan` loops
+(linne_tpu/ops/exact_device.py `_autocorr_serial`, `_levinson_serial`,
+`_serial_abs_mean`, `_chain_predict`). Here each is a hand-written CUDA
+kernel (csrc/exact_serial.cu: one thread per independent chain, the
+reference's loop in the reference's order, every operation rounded on its
+own) with a plain torch version beside it that takes the same operations
+one tensor op at a time.
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+version on CPU tensors. There is no fallback from one to the other.
+`KERNEL_LAUNCHES[name]` counts the kernel's launches.
+
+Where the JAX graph shields a product from FMA contraction (`_mulsh`), the
+plain versions keep its `where(p == p, p, 0)`: eager torch rounds every op
+on its own and needs no shield, but a NaN product still becomes 0 there,
+so the NaN lanes match. No plain version uses a fused op.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..constants import FLT_EPSILON
+from . import _kernels
+
+KERNELS = ("autocorr_serial", "levinson_serial", "serial_abs_mean",
+           "chain_predict")
+
+# Launches of each kernel since import (or since a caller reset them);
+# incremented only where the kernel is launched.
+KERNEL_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# The recursion's local array holds the format's largest layer order.
+KERNEL_MAX_ORDER = 128
+
+_F64 = torch.float64
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_SIGNATURES = {
+    "autocorr_serial": [_P, _P, _L, _I, _I, _P],
+    "levinson_serial": [_P, _P, _P, _P, _L, _I, _P],
+    "serial_abs_mean": [_P, _P, _L, _I, _I, _I, _P],
+    "chain_predict": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+}
+_fns: dict = {}
+
+
+def _mulsh(x, y):
+    """x * y with a NaN product replaced by 0 (the JAX graph's FMA
+    shield, linne_tpu/ops/exact_device.py:_mulsh)."""
+    p = x * y
+    return torch.where(p == p, p, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions
+# ---------------------------------------------------------------------------
+
+
+def autocorr_serial_ref(seg: torch.Tensor, nlags: int) -> torch.Tensor:
+    """ac[..., lag] = sum_i seg[..., i] * seg[..., i + lag], serial in i
+    from +0.0 (reference: lpc.c:215-249), over a zero-padded window as the
+    JAX scan takes it. seg [..., ns] -> [..., nlags]."""
+    ns = seg.shape[-1]
+    lead = seg.shape[:-1]
+    segp = torch.cat([seg, seg.new_zeros(lead + (nlags - 1,))], dim=-1)
+    acc = seg.new_zeros(lead + (nlags,))
+    for i in range(ns):
+        acc = acc + _mulsh(seg[..., i : i + 1], segp[..., i : i + nlags])
+    return acc
+
+
+def levinson_serial_ref(ac: torch.Tensor, order: int):
+    """Levinson-Durbin with the reference's op order (lpc.c:252-324), the
+    unrolled form of linne_tpu/ops/exact_device.py:_levinson_serial at
+    every order. ac [..., order + 1], post-ridge. Returns (lpc_coef
+    [..., order], parcor [..., order], zerocase [...] bool); zero-signal
+    segments (|r0| < FLT_EPSILON) give zeros."""
+    zerocase = torch.abs(ac[..., 0]) < FLT_EPSILON
+    zero = ac.new_zeros(ac.shape[:-1])
+    one = torch.ones_like(zero)
+    a = [zero] * (order + 2)
+    parcor = [zero] * order
+    a[0] = one
+    ek = ac[..., 0]
+    a[1] = -ac[..., 1] / ac[..., 0]
+    parcor[0] = ac[..., 1] / ek
+    ek = ek + _mulsh(ac[..., 1], a[1])
+    for k in range(1, order):
+        g = zero
+        for i in range(k + 1):
+            g = g + _mulsh(a[i], ac[..., k + 1 - i])
+        gamma = g / (-ek)
+        ek = ek * (1.0 - _mulsh(gamma, gamma))
+        u = [one] + a[1 : k + 1] + [zero]
+        v = [zero] + a[k:0:-1] + [one]
+        a = [u[i] + _mulsh(gamma, v[i]) for i in range(k + 2)] + a[k + 2 :]
+        parcor[k] = -gamma
+    nz = (~zerocase)[..., None]
+    coefs = torch.where(nz, torch.stack(a[1 : order + 1], dim=-1), 0.0)
+    parc = torch.where(nz, torch.stack(parcor, dim=-1), 0.0)
+    return coefs, parc, zerocase
+
+
+def serial_abs_mean_ref(rows: torch.Tensor, start: int, n: int
+                        ) -> torch.Tensor:
+    """sum(|rows[..., start:n]|) / n, serial in t from +0.0
+    (linne_network.c:50-63). rows [..., len] -> [...]."""
+    x = torch.abs(rows[..., start:n])
+    acc = rows.new_zeros(rows.shape[:-1])
+    for t in range(n - start):
+        acc = acc + x[..., t]
+    return _div(acc, n)
+
+
+def _div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n with IEEE division on every device: on CUDA, torch divides
+    by a Python scalar as a multiply by its rounded reciprocal."""
+    return x / torch.full_like(x, n)
+
+
+def chain_predict_ref(x: torch.Tensor, params: torch.Tensor):
+    """Per-sample serial tap chains, vectorised over time
+    (linne_network.c:165-210,319-335). x [B, n]; params [B, units, npu],
+    taps time-reversed per unit like layer.params. Returns (with_base,
+    no_base), each [B, n]: with_base[t] = ((x[t] + p0*w0) + p1*w1)...,
+    no_base the same chain from 0.0."""
+    B, n = x.shape
+    units, npu = params.shape[1], params.shape[2]
+    ns = n // units
+    xp = torch.cat([x.new_zeros((B, npu)), x], dim=1)
+    base = x.reshape(B, units, ns)
+    nobase = x.new_zeros((B, units, ns))
+    for j in range(npu):
+        w = xp[:, j : j + n].reshape(B, units, ns)
+        term = _mulsh(params[:, :, j : j + 1], w)
+        base = base + term
+        nobase = nobase + term
+    return base.reshape(B, n), nobase.reshape(B, n)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_kernels.load("exact_serial"), f"linne_{name}")
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _check(device: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != _F64:
+            raise TypeError(f"{name} must be float64, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    fn = _fn(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES[name] += 1
+
+
+def autocorr_serial(seg: torch.Tensor, nlags: int) -> torch.Tensor:
+    """seg [..., ns] float64 -> ac [..., nlags] (see autocorr_serial_ref),
+    1 <= nlags <= ns."""
+    _check(seg.device, seg=seg)
+    ns = seg.shape[-1]
+    if not 1 <= nlags <= ns:
+        raise ValueError(f"nlags {nlags} out of [1, {ns}]")
+    if seg.device.type == "cpu":
+        return autocorr_serial_ref(seg, nlags)
+    out = seg.new_empty(seg.shape[:-1] + (nlags,))
+    if out.numel():
+        _launch("autocorr_serial", seg.device, seg.data_ptr(),
+                out.data_ptr(), out.numel() // nlags, ns, nlags)
+    return out
+
+
+def levinson_serial(ac: torch.Tensor, order: int):
+    """ac [..., order + 1] float64 -> (lpc_coef, parcor, zerocase) (see
+    levinson_serial_ref), 1 <= order <= KERNEL_MAX_ORDER on the card."""
+    _check(ac.device, ac=ac)
+    if order < 1 or ac.shape[-1] != order + 1:
+        raise ValueError(f"ac has {ac.shape[-1]} lags for order {order}")
+    if ac.device.type == "cpu":
+        return levinson_serial_ref(ac, order)
+    if order > KERNEL_MAX_ORDER:
+        raise ValueError(f"order {order} exceeds the kernel's "
+                         f"{KERNEL_MAX_ORDER}")
+    lead = ac.shape[:-1]
+    coef = ac.new_empty(lead + (order,))
+    parcor = ac.new_empty(lead + (order,))
+    zc = torch.empty(lead, dtype=torch.uint8, device=ac.device)
+    if zc.numel():
+        _launch("levinson_serial", ac.device, ac.data_ptr(), coef.data_ptr(),
+                parcor.data_ptr(), zc.data_ptr(), zc.numel(), order)
+    return coef, parcor, zc.bool()
+
+
+def serial_abs_mean(rows: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """rows [..., len] float64 -> sum(|rows[..., start:n]|) / n, serial in
+    t; 0 <= start <= n <= len."""
+    _check(rows.device, rows=rows)
+    row_len = rows.shape[-1]
+    if not (0 <= start <= n <= row_len and n >= 1):
+        raise ValueError(f"bad range start={start} n={n} len={row_len}")
+    if rows.device.type == "cpu":
+        return serial_abs_mean_ref(rows, start, n)
+    out = rows.new_empty(rows.shape[:-1])
+    if out.numel():
+        _launch("serial_abs_mean", rows.device, rows.data_ptr(),
+                out.data_ptr(), out.numel(), row_len, start, n)
+    return out
+
+
+def chain_predict(x: torch.Tensor, params: torch.Tensor):
+    """x [B, n], params [B, units, npu] float64 -> (with_base, no_base)
+    (see chain_predict_ref); units divides n."""
+    _check(x.device, x=x, params=params)
+    if x.dim() != 2 or params.dim() != 3 or params.shape[0] != x.shape[0]:
+        raise ValueError(f"expected x [B, n] and params [B, units, npu], got "
+                         f"{tuple(x.shape)} and {tuple(params.shape)}")
+    B, n = x.shape
+    units, npu = params.shape[1], params.shape[2]
+    if units < 1 or npu < 1 or n % units:
+        raise ValueError(f"{units} units of {npu} taps do not split {n}")
+    if x.device.type == "cpu":
+        return chain_predict_ref(x, params)
+    base = torch.empty_like(x)
+    nobase = torch.empty_like(x)
+    if x.numel():
+        _launch("chain_predict", x.device, x.data_ptr(), params.data_ptr(),
+                base.data_ptr(), nobase.data_ptr(), B, n, units, npu)
+    return base, nobase

@@ -1,5 +1,7 @@
-"""The port on a CUDA card: the synthesis kernel against its plain torch
-version, and the encoder and decoder on the card against the CPU.
+"""The port on a CUDA card: the synthesis kernel and the byte-exact
+encoder's serial float64 kernels against their plain torch versions, the
+encoder and decoder on the card against the CPU, and the byte-exact device
+encoder on the card against the host oracle.
 
 Every test skips without a card. The file imports no jax, so it also runs
 on a machine without it:
@@ -15,6 +17,9 @@ from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
 from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
+from linne_tpu_torch.exact.device_encoder import DeviceExactEncoder
+from linne_tpu_torch.exact.encoder import ExactEncoder
+from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import synthesis as S
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +104,104 @@ def test_card_round_trip_matches_cpu(preset):
         for ch in range(2):
             assert np.array_equal(out[ch], sig[ch])
             assert np.array_equal(host[ch], sig[ch])
+
+
+# -- the byte-exact encoder's serial float64 kernels --------------------------
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64)
+
+
+def _segments(rows, units, ns, seed):
+    """Welch-windowed-scale noise plus a tone; row 0 is all zero."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(ns)
+    seg = (rng.normal(0, 0.05, (rows, units, ns))
+           + 0.4 * np.sin(2 * np.pi * rng.uniform(0.01, 0.2,
+                                                  (rows, units, 1)) * t))
+    seg[0] = 0.0
+    return torch.from_numpy(seg).cuda()
+
+
+# odd and even lengths, lags 1..129, nlags == ns; 13 rows is not a multiple
+# of the kernels' 128-thread blocks
+@pytest.mark.parametrize("rows,units,ns,nlags", [
+    (13, 1, 10240, 129), (5, 2, 81, 9), (3, 4, 64, 1), (7, 3, 130, 129),
+    (2, 1, 16, 16), (13, 128, 80, 2)])
+def test_autocorr_kernel_matches_plain_version(rows, units, ns, nlags):
+    _require_card()
+    seg = _segments(rows, units, ns, rows + ns + nlags)
+    before = ES.KERNEL_LAUNCHES["autocorr_serial"]
+    got = ES.autocorr_serial(seg, nlags)
+    torch.cuda.synchronize()
+    assert ES.KERNEL_LAUNCHES["autocorr_serial"] == before + 1
+    assert torch.equal(_bits(got), _bits(ES.autocorr_serial_ref(seg, nlags)))
+
+
+@pytest.mark.parametrize("order", [1, 2, 31, 32, 33, 64, 128])
+def test_levinson_kernel_matches_plain_version(order):
+    """Autocorrelations of seeded segments after a ridge, a zero-signal
+    row (|r0| < FLT_EPSILON) and a tiny one."""
+    _require_card()
+    seg = _segments(13, 1, 4 * order + 16, order)
+    seg[3] *= 1e-5
+    ac = ES.autocorr_serial_ref(seg, order + 1)[:, 0].contiguous()
+    ac[:, 0] *= 1.0 + 1.0 / 512.0
+    before = ES.KERNEL_LAUNCHES["levinson_serial"]
+    got = ES.levinson_serial(ac, order)
+    torch.cuda.synchronize()
+    assert ES.KERNEL_LAUNCHES["levinson_serial"] == before + 1
+    want = ES.levinson_serial_ref(ac, order)
+    assert bool(want[2][0]) and not bool(want[2][1])
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(_bits(g), _bits(w))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("rows,n,start", [(13 * 8, 10240, 1), (3, 77, 0),
+                                          (130, 2048, 0)])
+def test_abs_mean_kernel_matches_plain_version(rows, n, start):
+    _require_card()
+    x = _segments(rows, 1, n, n)[:, 0].contiguous()
+    before = ES.KERNEL_LAUNCHES["serial_abs_mean"]
+    got = ES.serial_abs_mean(x, start, n)
+    torch.cuda.synchronize()
+    assert ES.KERNEL_LAUNCHES["serial_abs_mean"] == before + 1
+    assert torch.equal(_bits(got), _bits(ES.serial_abs_mean_ref(x, start, n)))
+
+
+@pytest.mark.parametrize("rows,n,units,npu", [
+    (13, 10240, 1, 128), (5, 384, 4, 8), (3, 2048, 128, 1), (7, 300, 3, 5)])
+def test_chain_predict_kernel_matches_plain_version(rows, n, units, npu):
+    _require_card()
+    x = _segments(rows, 1, n, n + npu)[:, 0].contiguous()
+    rng = np.random.default_rng(units + npu)
+    params = torch.from_numpy(rng.normal(0, 0.4, (rows, units, npu))).cuda()
+    before = ES.KERNEL_LAUNCHES["chain_predict"]
+    got = ES.chain_predict(x, params)
+    torch.cuda.synchronize()
+    assert ES.KERNEL_LAUNCHES["chain_predict"] == before + 1
+    for g, w in zip(got, ES.chain_predict_ref(x, params)):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("preset", [1, 7])
+def test_device_exact_encoder_on_card_matches_oracle(preset):
+    """DeviceExactEncoder on the card: the host oracle's bytes, every
+    serial kernel launched, no row flagged by the guard."""
+    _require_card()
+    spb = 2048
+    sig = _track(3 * spb + 300, preset + 20)
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=spb, preset=preset, ch_process_method=1)
+    host = ExactEncoder()
+    host.set_encode_parameter(param)
+    ref = host.encode_whole([sig[0], sig[1]], sig.shape[1])
+    before = dict(ES.KERNEL_LAUNCHES)
+    enc = DeviceExactEncoder(device="cuda")
+    enc.set_encode_parameter(param)
+    assert enc.encode_whole([sig[0], sig[1]], sig.shape[1]) == ref
+    assert all(ES.KERNEL_LAUNCHES[k] > before[k] for k in ES.KERNELS)
+    assert enc.guard_rows_total == 6 and enc.guard_rows_flagged == 0

@@ -142,8 +142,11 @@ def test_cli_encode_decode_roundtrip(tmp_path, encoder):
     assert np.array_equal(read_wav(str(back))[1], sig)
 
 
-@pytest.mark.parametrize("flags", [["-l"], ["-a", "2"], ["--exact-device"]])
+@pytest.mark.parametrize("flags", [["-l"], ["-a", "2"],
+                                   ["--device", "cpu", "-l", "-a", "1"]])
 def test_cli_unported_flags_exit_2(tmp_path, flags):
+    """The batched encoder does not take -l or -a yet; the byte-exact
+    paths do (tests/test_torch_exact_encoders.py)."""
     wav = tmp_path / "in.wav"
     write_wav(str(wav), WAVEFORMS["sine"](1000, 1, 16), 44100, 16)
     r = _cli("-e", *flags, str(wav), str(tmp_path / "o.lnn"))

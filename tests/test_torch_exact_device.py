@@ -1,0 +1,313 @@
+"""The port's byte-exact device fit (linne_tpu_torch/ops/exact_device.py and
+its serial chains, ops/exact_serial.py) against the JAX package's strict
+graph on the same seeded inputs.
+
+Both run IEEE float64 on the CPU with every operation rounded on its own,
+so every comparison of the strict graph is bit for bit (float64 compared as
+int64 bits, so that -0.0 and +0.0 differ too). The JAX side runs on XLA:CPU
+as tests/test_exact_device.py runs it; its compile time dominates, so its
+results are shared through module-scoped fixtures. N = 2048 keeps the full
+unit-level sweep and a fast compile.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from linne_tpu.ops import exact_device as J
+from linne_tpu_torch.ops import exact_device as T
+from linne_tpu_torch.ops import exact_serial as S
+from linne_tpu_torch.presets import PRESETS
+
+BPS = 16
+CB = 8  # LPC_COEF_BITWIDTH
+N = 2048
+
+
+def _signal(B, n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    rows = [np.round(rng.uniform(1500, 24000)
+                     * np.sin(2 * np.pi * rng.uniform(60, 6000) * t / 44100)
+                     + rng.normal(0, rng.uniform(15, 2500), n))
+            for _ in range(B)]
+    return np.clip(np.stack(rows), -32768, 32767).astype(np.int32)
+
+
+def _fit_input(preset_idx):
+    """Three rows and an all-zero row (the zero-signal early-out lane)."""
+    sig = _signal(4, N, seed=10 + preset_idx)
+    sig[2] = 0
+    return sig
+
+
+def _bits_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if a.dtype == np.float64 or b.dtype == np.float64:
+        return (a.dtype == b.dtype
+                and np.array_equal(a.view(np.int64), b.view(np.int64)))
+    return np.array_equal(a, b)
+
+
+def _assert_same(ours: dict, theirs: dict):
+    assert set(ours) == set(theirs)
+    for k in theirs:
+        assert _bits_equal(ours[k], theirs[k]), k
+
+
+def _np(tree):
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_fits():
+    """linne_tpu's strict fit outputs per preset (0: one ridge term, 1: two)."""
+    out = {}
+    for pi in (0, 1):
+        p = PRESETS[pi]
+        fit = J.build_fit_fn(p.layer_num_params, p.ridge_terms, N, BPS, CB,
+                             strict=True)
+        out[pi] = _np(fit(jnp.asarray(_fit_input(pi))))
+    return out
+
+
+@pytest.mark.parametrize("preset_idx", [0, 1])
+def test_strict_fit_bit_equal_to_jax(jax_fits, preset_idx):
+    """Every output of the fit, the guard margins and the arena arrays
+    included."""
+    p = PRESETS[preset_idx]
+    fit = T.build_fit_fn(p.layer_num_params, p.ridge_terms, N, BPS, CB,
+                         strict=True)
+    _assert_same(_np(fit(torch.from_numpy(_fit_input(preset_idx)))),
+                 jax_fits[preset_idx])
+
+
+def test_strict_is_the_default(monkeypatch):
+    monkeypatch.delenv("LINNE_EXACT_DEVICE_STRICT", raising=False)
+    assert T._resolve_strict(None) is True
+    monkeypatch.setenv("LINNE_EXACT_DEVICE_STRICT", "0")
+    assert T._resolve_strict(None) is False
+    assert T._resolve_strict(True) is True
+
+
+def test_packed_fit_matches_dict():
+    """build_packed_fit_fn is a re-layout of build_fit_fn: two buffers,
+    bit-equal entries after unpack."""
+    p = PRESETS[1]  # two ridge terms: exercises best_term packing
+    sig = torch.from_numpy(_signal(3, N, seed=77))
+    want = _np(T.build_fit_fn(p.layer_num_params, p.ridge_terms, N, BPS,
+                              CB)(sig))
+    pfit, unpack = T.build_packed_fit_fn(p.layer_num_params, p.ridge_terms,
+                                         N, BPS, CB)
+    f64, i32 = pfit(sig)
+    assert f64.dtype == torch.float64 and i32.dtype == torch.int32
+    got = unpack(f64.numpy(), i32.numpy())
+    assert set(got) == set(want)
+    for k in want:
+        assert _bits_equal(np.asarray(got[k], want[k].dtype), want[k]), k
+
+
+@pytest.fixture(scope="module")
+def final_pass_case():
+    """Inputs of the -a N final pass and linne_tpu's stage outputs, layer
+    by layer: rows at two ridge terms, and forward params made from the
+    search's winner (a seeded perturbation of zero, like a host refit)."""
+    p = PRESETS[1]
+    lps = p.layer_num_params
+    sig = _signal(3, N, seed=81)
+    terms = np.array([0.0, p.ridge_terms[1], 0.0])
+    rng = np.random.default_rng(82)
+    params = [rng.normal(0, 0.05, (3, P)) for P in lps]
+    to_f64, searches, forwards = J.build_final_pass_fns(lps, N, BPS,
+                                                        strict=True)
+    buf = to_f64(jnp.asarray(sig))
+    want = []
+    for li in range(len(lps)):
+        s = searches[li](buf, jnp.asarray(terms))
+        buf = forwards[li](buf, jnp.asarray(params[li]), s["best"])
+        want.append((_np(s), np.asarray(buf)))
+    return lps, sig, terms, params, want
+
+
+def test_final_pass_stages_bit_equal_to_jax(final_pass_case):
+    lps, sig, terms, params, want = final_pass_case
+    to_f64, searches, forwards = T.build_final_pass_fns(lps, N, BPS,
+                                                        strict=True)
+    buf = to_f64(torch.from_numpy(sig))
+    t = torch.from_numpy(terms)
+    for li in range(len(lps)):
+        s = searches[li](buf, t)
+        buf = forwards[li](buf, torch.from_numpy(params[li]), s["best"])
+        _assert_same(_np(s), want[li][0])
+        assert _bits_equal(buf.numpy(), want[li][1])
+
+
+def test_fast_mode_decisions_match_strict():
+    """Fast mode (plain torch reductions, another summation order): the
+    same decisions as the strict graph. Floats: 1e-12 relative, with a
+    1e-11 absolute floor, because a coefficient near zero carries the same
+    ~1e-13 absolute rounding difference as the large ones (the JAX
+    package's own fast-mode test allows 1e-9 absolute)."""
+    p = PRESETS[1]
+    sig = torch.from_numpy(_signal(4, N, seed=606))
+    a = _np(T.build_fit_fn(p.layer_num_params, p.ridge_terms, N, BPS, CB,
+                           strict=True)(sig))
+    b = _np(T.build_fit_fn(p.layer_num_params, p.ridge_terms, N, BPS, CB,
+                           strict=False)(sig))
+    for key in ("units", "int_coefs", "rshifts", "best_term", "arena_best",
+                "arena_zc"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    np.testing.assert_allclose(b["params"], a["params"], rtol=1e-12,
+                               atol=1e-11)
+    np.testing.assert_allclose(b["arena_parcor"], a["arena_parcor"],
+                               rtol=1e-12, atol=1e-11)
+
+
+# -- the serial building blocks (the kernels' plain versions) ----------------
+
+
+@pytest.mark.parametrize("ns,nlags", [(64, 1), (64, 33), (81, 9), (2048, 3),
+                                      (130, 129), (16, 16)])
+def test_autocorr_serial_bit_equal_to_jax(ns, nlags):
+    """Odd and even lengths, one lag up to 129 lags, nlags == ns."""
+    rng = np.random.default_rng(ns + nlags)
+    seg = rng.normal(0, 0.3, (3, 2, ns))
+    seg[1, 0] = 0.0
+    want = np.asarray(J._autocorr_serial(jnp.asarray(seg), nlags))
+    got = S.autocorr_serial(torch.from_numpy(seg), nlags)
+    assert _bits_equal(got.numpy(), want)
+
+
+def _ac_rows(order, seed):
+    """Autocorrelation rows of windowed noise-plus-tone segments, with a
+    zero-signal row (|r0| < FLT_EPSILON) and a tiny one."""
+    rng = np.random.default_rng(seed)
+    ns = 4 * order + 16
+    t = np.arange(ns)
+    seg = (rng.normal(0, 0.05, (5, ns))
+           + 0.4 * np.sin(2 * np.pi * rng.uniform(0.01, 0.2, (5, 1)) * t))
+    seg[1] = 0.0
+    seg[3] *= 1e-6
+    return np.array(J._autocorr_serial(jnp.asarray(seg[:, None]),
+                                       order + 1))[:, 0]
+
+
+@pytest.mark.parametrize("order", [1, 2, 31, 32, 33, 64])
+def test_levinson_serial_bit_equal_to_jax(order):
+    """The unrolled recursion (order <= 32) and the scan tail (above)."""
+    ac = _ac_rows(order, order)
+    want = [np.asarray(a) for a in J._levinson_serial(jnp.asarray(ac),
+                                                      order)]
+    got = [a.numpy() for a in S.levinson_serial(torch.from_numpy(ac), order)]
+    assert want[2][1] and not want[2][0]  # the zero row took the early-out
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("units,npu", [(1, 32), (4, 8), (32, 1), (2, 3)])
+def test_chain_predict_bit_equal_to_jax(units, npu):
+    rng = np.random.default_rng(units * 100 + npu)
+    n = 96 * units
+    x = rng.normal(0, 0.3, (3, n))
+    params = rng.normal(0, 0.5, (3, units, npu))
+    want = J._chain_predict(jnp.asarray(x), jnp.asarray(params), units)
+    got = S.chain_predict(torch.from_numpy(x), torch.from_numpy(params))
+    for g, w in zip(got, want):
+        assert _bits_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("start,n", [(0, 2048), (1, 2048), (1, 77)])
+def test_serial_abs_mean_bit_equal_to_jax(start, n):
+    rng = np.random.default_rng(start + n)
+    rows = rng.normal(0, 0.3, (3, 4, n))
+    want = np.asarray(J._serial_abs_mean(jnp.asarray(rows), start, n))
+    got = S.serial_abs_mean(torch.from_numpy(rows), start, n)
+    assert _bits_equal(got.numpy(), want)
+
+
+def test_quantize_layer_bit_equal_to_jax():
+    """Ordinary rows, a low row (max |coef| under the threshold: zero
+    coefficients, rshift = nbits), saturating rows and an exact power of
+    two."""
+    rng = np.random.default_rng(9)
+    coefs = rng.normal(0, 0.4, (6, 32))
+    coefs[1] = rng.normal(0, 1e-3, 32)
+    coefs[2] *= 300.0
+    coefs[3, 5] = 0.5
+    coefs[4] = 0.0
+    want = [np.asarray(a) for a in J._quantize_layer(jnp.asarray(coefs), CB)]
+    got = [a.numpy() for a in T._quantize_layer(torch.from_numpy(coefs), CB)]
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+# -- the host (numpy) helpers -----------------------------------------------
+
+
+def test_level_helpers_equal():
+    for lps in ((2, 32), (4, 64, 8), (4, 128, 16)):
+        for n in (10240, 2048, 2047, 16, 96):
+            assert T.supported(lps, n) == J.supported(lps, n)
+            for P in lps:
+                assert T._valid_levels(P, n) == J._valid_levels(P, n)
+                assert T.final_level_layout(P, n) == J.final_level_layout(P, n)
+        terms = (0.0, 1e-5, 1e-4)
+        assert T.arena_layout(lps, terms, 10240) == J.arena_layout(
+            lps, terms, 10240)
+
+
+def test_fold_helpers_equal():
+    """fold_parcor_state and fold_final_pass leave the same arena as the
+    JAX package's on seeded random deposits, zero flags and winners."""
+    lps = (4, 128, 16)
+    terms = (0.0, 1e-5, 1e-4, 1e-3)
+    n = 10240
+    entries, L = J.arena_layout(lps, terms, n)
+    aw = max(off + w for off, w, _ in entries.values())
+    az = max(z for _, _, z in entries.values()) + 1
+    nlev = [len(J._valid_levels(P, n)) for P in lps]
+    rng = np.random.default_rng(123)
+    for _ in range(20):
+        out = {
+            "arena_parcor": rng.normal(size=(2, aw)),
+            "arena_zc": rng.random((2, az)) < 0.3,
+            "arena_best": np.array([[rng.integers(0, nlev[li])
+                                     for _t in terms for li in range(L)]
+                                    for _ in range(2)]),
+            "best_term": rng.integers(0, len(terms), size=(2,)),
+        }
+        for include_final in (True, False):
+            a = rng.normal(size=160)
+            b = a.copy()
+            T.fold_parcor_state(a, out, 2, lps, terms, n, include_final)
+            J.fold_parcor_state(b, out, 2, lps, terms, n, include_final)
+            assert np.array_equal(a, b)
+        finals = [{"parcor": rng.normal(size=sum(
+                       npu for _o, npu in J.final_level_layout(P, n))),
+                   "zc": rng.random(nlev[li]) < 0.3,
+                   "best": int(rng.integers(0, nlev[li]))}
+                  for li, P in enumerate(lps)]
+        a = rng.normal(size=160)
+        b = a.copy()
+        T.fold_final_pass(a, finals, lps, n)
+        J.fold_final_pass(b, finals, lps, n)
+        assert np.array_equal(a, b)
+
+
+def test_quantize_margins_np_equal():
+    rng = np.random.default_rng(31)
+    for scale in (1e-3, 0.05, 0.4, 3.0):
+        coefs = rng.normal(0, scale, 32)
+        assert T.quantize_margins_np(coefs, CB) == J.quantize_margins_np(
+            coefs, CB)
+
+
+def test_jax_side_ran_on_cpu():
+    """The reference graph ran on XLA:CPU, where its f64 is IEEE."""
+    assert jax.default_backend() == "cpu"

@@ -50,7 +50,9 @@ def test_importing_kernels_builds_nothing(tmp_path):
     r = _run(
         "import sys; "
         f"sys.path.insert(0, {str(REPO_ROOT)!r}); "
-        "import linne_tpu_torch.ops.synthesis, linne_tpu_torch.ops._kernels; "
+        "import linne_tpu_torch.ops.synthesis, linne_tpu_torch.ops._kernels, "
+        "linne_tpu_torch.ops.exact_serial, linne_tpu_torch.ops.exact_device, "
+        "linne_tpu_torch.exact.device_encoder; "
         "print('ok')")
     assert r.returncode == 0, r.stderr
     after = set(_kernels._BUILD_DIR.glob("*")) if _kernels._BUILD_DIR.exists() else set()
@@ -167,6 +169,13 @@ assert cli.main(["-e", "--exact", str(tmp / "in.wav"),
                  str(tmp / "out.lnn")]) == 0
 assert cli.main(["-d", str(tmp / "out.lnn"), str(tmp / "back.wav")]) == 0
 assert np.array_equal(read_wav(str(tmp / "back.wav"))[1], wav)
+assert cli.main(["-e", "--exact", "--threads", "2", "-a", "1",
+                 str(tmp / "in.wav"), str(tmp / "thr.lnn")]) == 0
+assert cli.main(["-e", "--exact-device", "--device", "cpu",
+                 str(tmp / "in.wav"), str(tmp / "dev.lnn")]) == 0
+assert (tmp / "dev.lnn").read_bytes() == (tmp / "out.lnn").read_bytes()
+assert cli.main(["-d", str(tmp / "thr.lnn"), str(tmp / "back2.wav")]) == 0
+assert np.array_equal(read_wav(str(tmp / "back2.wav"))[1], wav)
 
 loaded = [m for m in sys.modules if m.split(".")[0] in ("linne_tpu", "jax")]
 assert not loaded, loaded
@@ -176,9 +185,9 @@ print("ok", len(mods))
 
 def test_port_runs_with_linne_tpu_and_jax_blocked(tmp_path):
     """Every module of the port imports, and the encoder (with a tail that
-    takes the host ExactEncoder), both decoders and the CLI's --exact
-    encode and decode run on the CPU, with imports of `linne_tpu` and jax
-    refused."""
+    takes the host ExactEncoder), both decoders and the CLI's --exact,
+    --exact --threads 2 -a 1 and --exact-device encodes and its decode run
+    on the CPU, with imports of `linne_tpu` and jax refused."""
     code = (f"REPO = {str(REPO_ROOT)!r}\nTMP = {str(tmp_path)!r}\n"
             + _BLOCKED_RUN)
     r = _run(code)
