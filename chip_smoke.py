@@ -20,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
      in a second decode, checked bit for bit against the plain version and
      timed (CUDA events) beside its bound; then one decode under
      torch.profiler for the device-time breakdown;
-  6. CLI: `python -m linne_tpu_torch.cli -e -m 7` on a 10 s WAV, and
-     `-e --exact-device -m 7` against `-e --exact` on it, byte for byte;
+  6. CLI: `python -m linne_tpu_torch.cli -e -m 7`, `-e -m 7 -a 2` and
+     `-e -m 7 -l` on a 10 s WAV (each lossless), and `-e --exact-device
+     -m 7` against `-e --exact` on it, byte for byte;
   7. cross-device: one 10 s track encoded on the CPU and on the card;
   8. exact-device kernels: each serial float64 kernel of exact_serial.cu
      against its plain torch version on the card, bit for bit, at the edge
@@ -38,7 +39,16 @@ Phases (any failure raises and the script exits non-zero):
      recorded, checked bit for bit against the plain version and timed
      beside its bound and chain bound;
  11. -a 2 (preset 7) and -l (preset 1) through DeviceExactEncoder on a
-     3-block + tail track, byte-identical to ExactEncoder.
+     3-block + tail track, byte-identical to ExactEncoder;
+ 12. -a 2 and -l on the batched path: TorchEncoder.encode_many on the
+     corpus of phase 4 with each, then TorchDecoder.decode_many (and the
+     host Decoder): lossless, the kernel launched; wall time and realtime
+     multiples beside phase 4's plain multiple, the training's iterations
+     per batch and the AF and training stages' share of the wall (CUDA
+     events); then one 10 s track with -a 2 -l on the CPU port and on the
+     card: both lossless, sizes within 0.1 %; the torch ops that one
+     batch's AF stages and one training iteration dispatch, and device
+     time against wall time of one 64-block batch with each flag.
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
@@ -62,15 +72,23 @@ from linne_tpu_torch.codec import torch_decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
 from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
-from linne_tpu_torch.constants import CH_PROCESS_MS, LPC_COEF_BITWIDTH
+from linne_tpu_torch.constants import (
+    CH_PROCESS_MS,
+    LPC_COEF_BITWIDTH,
+    TRAINING_LEARNING_RATE,
+    TRAINING_LOSS_EPSILON,
+)
 from linne_tpu_torch.exact import device_encoder as DE
 from linne_tpu_torch.exact.encoder import ExactEncoder
 from linne_tpu_torch.exact.parallel_encoder import ParallelExactEncoder
 from linne_tpu_torch.io.wav import write_wav
 from linne_tpu_torch.ops import _kernels
+from linne_tpu_torch.ops import afmethod
+from linne_tpu_torch.ops import analysis as A
 from linne_tpu_torch.ops import exact_device as ED
 from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import synthesis as S
+from linne_tpu_torch.ops import training
 from linne_tpu_torch.presets import PRESETS
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -253,7 +271,7 @@ def main_path_phase():
           f"({seconds / (t2 - t1):.1f}x realtime), "
           f"size {100.0 * out_bytes / in_bytes:.3f} % of PCM, "
           f"kernel launches {launches}")
-    return launches, datas
+    return launches, datas, seconds / (t1 - t0)
 
 
 def decode_groups_phase(datas) -> int:
@@ -343,6 +361,19 @@ def cli_phase(tmp: pathlib.Path) -> None:
             "CLI stream is not lossless")
     print(f"cli: -e -m {PRESET} on 10 s stereo -> {len(data)} bytes, "
           "lossless")
+    for flags in (["-a", "2"], ["-l"]):
+        out = tmp / "flags.lnn"
+        proc = subprocess.run(
+            [sys.executable, "-m", "linne_tpu_torch.cli", "-e", "-m",
+             str(PRESET), *flags, str(wav), str(out)], cwd=str(ROOT),
+            env=env, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"CLI -e {' '.join(flags)} failed:\n{proc.stderr}")
+        data = out.read_bytes()
+        require(lossless(sig, Decoder().decode_whole(data)),
+                f"CLI -e {' '.join(flags)} stream is not lossless")
+        print(f"cli: -e -m {PRESET} {' '.join(flags)} -> {len(data)} "
+              "bytes, lossless")
     streams = {}
     for flag in ("--exact", "--exact-device"):
         out = tmp / f"{flag.strip('-')}.lnn"
@@ -645,13 +676,12 @@ class QuantizerTap:
         ED._quantize_layer = self._real
 
 
-def count_fit_ops(fit, x: torch.Tensor):
-    """(ops, quantizer ops): the torch ops one fit call dispatches, views
-    and allocations excluded (they launch nothing), and how many of them
-    run inside the quantizer."""
+def count_ops(fn, *args, inside=lambda: False):
+    """(ops, ops inside): the torch ops fn(*args) dispatches, views and
+    allocations excluded (they launch nothing), and how many of them were
+    dispatched while inside() held."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    quant = QuantizerTap()
     counts = [0, 0]
 
     class Count(TorchDispatchMode):
@@ -660,12 +690,20 @@ def count_fit_ops(fit, x: torch.Tensor):
             if not (func.is_view or "empty" in name
                     or name == "aten::_local_scalar_dense"):
                 counts[0] += 1
-                counts[1] += quant.inside
+                counts[1] += inside()
             return func(*args, **(kwargs or {}))
 
-    with quant, Count():
-        fit(x)
+    with Count():
+        fn(*args)
     return counts[0], counts[1]
+
+
+def count_fit_ops(fit, x: torch.Tensor):
+    """(ops, quantizer ops): the torch ops one fit call dispatches, views
+    and allocations excluded (they launch nothing), and how many of them
+    run inside the quantizer."""
+    with QuantizerTap() as quant:
+        return count_ops(fit, x, inside=lambda: quant.inside)
 
 
 def exact_calls_phase(tracks, clock_hz: float) -> dict:
@@ -795,6 +833,191 @@ def exact_flags_phase() -> None:
               f"{enc.guard_rows_flagged} flagged of {enc.guard_rows_total}")
 
 
+# -- -a and -l on the batched encoder ----------------------------------------
+
+
+class StageTimes:
+    """Within its `with`, every AF layer stage and training call of a
+    TorchEncoder built inside it is bracketed by CUDA events, and each
+    training call's iteration count is kept."""
+
+    def __init__(self):
+        self.af = []          # (start, end) events per AF layer-stage call
+        self.train = []       # (start, end) events per training call
+        self.iterations = []  # per training call (one per batch)
+        self._real = (afmethod.make_af_layer_stage, training.make_train_fn)
+
+    @staticmethod
+    def _timed(fn, spans):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans.append((start, end))
+            return out
+        return run
+
+    def __enter__(self):
+        make_stage, make_train = self._real
+
+        def stage(*args):
+            return self._timed(make_stage(*args), self.af)
+
+        def train(*args):
+            run = self._timed(make_train(*args), self.train)
+
+            def counted(*targs):
+                params, iterations = run(*targs)
+                self.iterations.append(iterations)
+                return params, iterations
+            return counted
+
+        afmethod.make_af_layer_stage = stage
+        training.make_train_fn = train
+        return self
+
+    def __exit__(self, *exc):
+        afmethod.make_af_layer_stage, training.make_train_fn = self._real
+
+    @staticmethod
+    def ms(spans) -> float:
+        return sum(start.elapsed_time(end) for start, end in spans)
+
+
+def learn_af_phase(tracks, plain_multiple: float) -> None:
+    """-a 2 and -l through TorchEncoder.encode_many on the corpus of phase
+    4, each decoded by TorchDecoder.decode_many with the launch count set
+    to 0 just before the encode and read just after the decode."""
+    lengths = [t.shape[1] for t in tracks]
+    seconds = sum(lengths) / RATE
+    chans = [[t[0], t[1]] for t in tracks]
+    warm = make_track(2 * SPB / RATE, 97)
+    for flags, af, learn in (("-a 2", 2, False), ("-l", 0, True)):
+        # warm-up: cuSOLVER and autograd state, cuFFT plans
+        enc = TorchEncoder(device="cuda")
+        enc.set_encode_parameter(param(af=af, learn=learn))
+        enc.encode_many([[warm[0], warm[1]]], [warm.shape[1]])
+        torch.cuda.synchronize()
+
+        dec = TorchDecoder(device="cuda")
+        S.KERNEL_LAUNCHES = 0
+        with StageTimes() as times:
+            enc = TorchEncoder(device="cuda")
+            enc.set_encode_parameter(param(af=af, learn=learn))
+            t0 = time.perf_counter()
+            datas = enc.encode_many(chans, lengths)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        decoded = dec.decode_many(datas)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = S.KERNEL_LAUNCHES
+        require(launches > 0, f"decode_many of the {flags} streams did not "
+                              "launch the synthesis kernel")
+        for sig, data, out in zip(tracks, datas, decoded):
+            require(lossless(sig, out),
+                    f"TorchDecoder output of a {flags} stream is not "
+                    "lossless")
+            require(lossless(sig, Decoder().decode_whole(data)),
+                    f"host Decoder output of a {flags} stream is not "
+                    "lossless")
+        wall_ms = 1e3 * (t1 - t0)
+        af_ms, train_ms = times.ms(times.af), times.ms(times.train)
+        in_bytes = sum(lengths) * 2 * 2
+        out_bytes = sum(len(d) for d in datas)
+        print(f"batched {flags}: {len(tracks)} x 30 s stereo, preset "
+              f"{PRESET}: encode {t1 - t0:.3f} s ({seconds / (t1 - t0):.1f}x "
+              f"realtime; plain -e {plain_multiple:.1f}x in phase 4), decode "
+              f"{t2 - t1:.3f} s ({seconds / (t2 - t1):.1f}x realtime), size "
+              f"{100.0 * out_bytes / in_bytes:.3f} % of PCM, kernel launches "
+              f"{launches}; AF stages {af_ms:.1f} ms "
+              f"({100 * af_ms / wall_ms:.1f} % of the wall), training "
+              f"{train_ms:.1f} ms ({100 * train_ms / wall_ms:.1f} %), "
+              f"training iterations per batch {times.iterations}")
+
+    sig = make_track(10.0, 13)
+    n = sig.shape[1]
+    streams, secs = {}, {}
+    for device in ("cpu", "cuda"):
+        enc = TorchEncoder(device=device)
+        enc.set_encode_parameter(param(af=2, learn=True))
+        t0 = time.perf_counter()
+        streams[device] = enc.encode_whole([sig[0], sig[1]], n)
+        secs[device] = time.perf_counter() - t0
+        require(lossless(sig, Decoder().decode_whole(streams[device])),
+                f"-a 2 -l {device} stream is not lossless")
+    a, b = streams["cpu"], streams["cuda"]
+    require(abs(len(a) - len(b)) <= 0.001 * len(a),
+            f"-a 2 -l: cpu and cuda sizes differ by more than 0.1%: "
+            f"{len(a)} vs {len(b)}")
+    print(f"cross-device -a 2 -l: cpu {len(a)} bytes in {secs['cpu']:.2f} s, "
+          f"cuda {len(b)} bytes in {secs['cuda']:.2f} s, identical streams: "
+          f"{a == b}")
+
+
+def learn_af_dispatch_phase() -> None:
+    """The torch ops the AF stages of one batch and one training iteration
+    dispatch on the card (preset 7, -a 2), and device time against wall
+    time of one 64-block batch encoded with -a 2 and with -l."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    preset = PRESETS[PRESET]
+    orders = preset.layer_num_params
+    units = [A.candidate_units(o, SPB) for o in orders]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 0.1, (8, 2, SPB))).cuda()
+    log2u = [torch.from_numpy(rng.choice([(u - 1).bit_length() for u in c],
+                                         (8, 2)).astype(np.int32)).cuda()
+             for c in units]
+    ridge = torch.full((8, 2), 1.0 / 512.0, dtype=torch.float64,
+                       device="cuda")
+    af_ops = sum(count_ops(afmethod.make_af_layer_stage(o, units[li], 2),
+                           x, log2u[li], ridge)[0]
+                 for li, o in enumerate(orders))
+    params = [torch.from_numpy(rng.normal(0, 0.05, (8, 2, o))).cuda()
+              for o in orders]
+    per_call = [count_ops(training.make_train_fn(
+        orders, units, cap, TRAINING_LEARNING_RATE, TRAINING_LOSS_EPSILON),
+        x, params, log2u)[0] for cap in (1, 2)]
+    print(f"batched dispatch: the AF stages of one batch (-a 2) dispatch "
+          f"{af_ops} torch ops, one training iteration "
+          f"{per_call[1] - per_call[0]} (the first with its set-up "
+          f"{per_call[0]}); views and allocations excluded")
+
+    sig = make_track(64 * SPB / RATE, 5)  # exactly one 64-block batch
+    for flags, af, learn in (("-a 2", 2, False), ("-l", 0, True)):
+        enc = TorchEncoder(device="cuda")
+        enc.set_encode_parameter(param(af=af, learn=learn))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enc.encode_whole([sig[0], sig[1]], sig.shape[1])
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = {}
+        launches = 0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            kernels[ev.key] = ev.self_device_time_total / 1e3
+            launches += ev.count
+        device_ms = sum(kernels.values())
+        if device_ms == 0:
+            print(f"batched {flags} profile: no device time in the trace "
+                  "(not measured)")
+            continue
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+        print(f"batched {flags} profile, one 64-block batch: wall "
+              f"{wall_ms:.1f} ms (profiled), device {device_ms:.3f} ms in "
+              f"{launches} launches ({100 * device_ms / wall_ms:.1f} % "
+              "busy); largest: " + ", ".join(
+                  f"{k[:48]} {v:.3f} ms" for k, v in top))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -823,7 +1046,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
 
     kernel = kernel_phase()
-    launches, datas = main_path_phase()
+    launches, datas, plain_multiple = main_path_phase()
     group_err = decode_groups_phase(datas)
     decode_profile_phase(datas)
     with tempfile.TemporaryDirectory() as tmp:
@@ -835,6 +1058,8 @@ def main() -> int:
     exact_launches = exact_encode_phase(tracks)
     exact = exact_calls_phase(tracks, clock_hz)
     exact_flags_phase()
+    learn_af_phase(tracks, plain_multiple)
+    learn_af_dispatch_phase()
 
     replaces = {"autocorr_serial": 148, "levinson_serial": 203,
                 "serial_abs_mean": 378, "chain_predict": 349}

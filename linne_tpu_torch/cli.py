@@ -6,10 +6,9 @@ tools/linne_codec/linne_codec.c:15-33). `-e` runs the batched TorchEncoder
 `--exact` the byte-exact host ExactEncoder (`--threads N`: its per-block
 fitting on N host threads, ParallelExactEncoder), `--exact-device` the
 byte-exact DeviceExactEncoder with the per-block fitting on `--device`.
-Learning (`-l`) and AF refinement (`-a N`) work on the three byte-exact
-paths; the batched encoder does not take them yet and exits with code 2.
+Learning (`-l`) and AF refinement (`-a N`) work on every encode path.
 
-Usage:  python -m linne_tpu_torch.cli -e [-m 4] in.wav out.lnn
+Usage:  python -m linne_tpu_torch.cli -e [-m 4] [-a 2] [-l] in.wav out.lnn
         python -m linne_tpu_torch.cli -d out.lnn restored.wav
 """
 
@@ -35,12 +34,10 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--mode", type=int, default=0,
                    help="Compress mode: 0(fast) .. 7(high compression)")
     p.add_argument("-l", "--enable-learning", action="store_true",
-                   help="Gradient-train the predictor while encoding "
-                        "(byte-exact paths only)")
+                   help="Gradient-train the predictor while encoding")
     p.add_argument("-a", "--auxiliary-function-iteration", type=int,
                    default=0, metavar="N",
-                   help="Auxiliary-function method iteration count "
-                        "(byte-exact paths only)")
+                   help="Auxiliary-function method iteration count")
     p.add_argument("-c", "--no-crc-check", action="store_true",
                    help="Do NOT check CRC16 when decoding")
     p.add_argument("--exact", action="store_true",
@@ -64,18 +61,6 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("input", nargs="?")
     p.add_argument("output", nargs="?")
     return p
-
-
-def _not_ported(args):
-    """The name of the first requested feature this port lacks, or None:
-    the batched encoder does not take -l or -a yet."""
-    if not args.encode or args.exact or args.exact_device:
-        return None
-    if args.enable_learning:
-        return "-l"
-    if args.auxiliary_function_iteration:
-        return "-a"
-    return None
 
 
 def do_encode(args) -> int:
@@ -170,11 +155,6 @@ def main(argv=None) -> int:
         print("specify exactly one of -e (encode) / -d (decode) "
               "plus input and output files", file=sys.stderr)
         return 1
-    missing = _not_ported(args)
-    if missing is not None:
-        print(f"error: {missing} is not ported yet to the batched encoder "
-              "(use --exact or --exact-device)", file=sys.stderr)
-        return 2
     try:
         return do_encode(args) if args.encode else do_decode(args)
     except FileNotFoundError as e:

@@ -3,9 +3,11 @@ Counterpart of linne_tpu/codec/encoder.py:TpuEncoder.
 
 Whole tracks are split into [blocks, channels, block_len] tensors. One
 batch runs a chain of stages on the device (pre-processing: estimator, MS
-transform, pre-emphasis; one unit x ridge sweep per layer; ridge selection,
-quantization, integer predict cascade and Rice parameter search); the host
-then only packs bits with the native library.
+transform, pre-emphasis; one unit x ridge sweep per layer; ridge selection;
+with `-a N` an IRLS refit of each layer under the winning ridge
+(ops/afmethod.py), with `-l` momentum training of the whole cascade
+(ops/training.py); quantization, integer predict cascade and Rice parameter
+search); the host then only packs bits with the native library.
 
 Emitted streams are always losslessly decodable by the reference decoder
 (integer predict/Rice semantics are wire-exact, and the residual is
@@ -41,6 +43,9 @@ from ..constants import (
     NUM_PREEMPH_FILTERS,
     PREEMPH_COEF_SHIFT,
     RSHIFT_BITWIDTH,
+    TRAINING_LEARNING_RATE,
+    TRAINING_LOSS_EPSILON,
+    TRAINING_MAX_NUM_ITERATIONS,
 )
 from ..format.bitstream import BitWriter
 from ..format.block import frame_block, write_raw_payload
@@ -51,9 +56,11 @@ from ..format.zigzag import zigzag_encode_array, zigzag_encode_scalar
 from ..presets import PRESETS
 
 from ..ops import ANALYSIS_DTYPE
+from ..ops import afmethod
 from ..ops import analysis as A
 from ..ops import intops as I
 from ..ops import rice_search as R
+from ..ops import training
 
 _RAW_THRESHOLD = float(np.float32(0.95))
 
@@ -96,9 +103,6 @@ class TorchEncoder:
 
     def set_encode_parameter(self, parameter: EncodeParameter) -> None:
         parameter.validate_against(self.config)
-        if parameter.enable_learning or parameter.num_afmethod_iterations > 0:
-            raise NotImplementedError(
-                "learning (-l) and AF refinement (-a) are not ported yet")
         self.parameter = parameter
         self.preset = PRESETS[parameter.preset]
         self.codebook = get_codebook(self.preset.coef_freq_table)
@@ -158,16 +162,32 @@ class TorchEncoder:
                 (nridge,) + (1,) * (sig_r.dim() - 1))
             return A.fit_layer(sig_r, order, rv)
 
-        def select_finish_stage(raw_flag, silent_flag, pprev, pcoef, buf,
-                                final_res, log2u_r, params_r):
+        def select_stage(final_res, log2u_r, params_r):
             # winning ridge: first minimum, as the reference's strict-<
-            # sweep
+            # sweep; returns its per-layer selections and its ridge term
             final_loss = (torch.sum(torch.abs(final_res), dim=-1)
                           / final_res.shape[-1])
             best = torch.argmin(final_loss, dim=0)
-            log2u = [A.take_ridge(l, best) for l in log2u_r]
-            params = [A.take_ridge(f, best) for f in params_r]
+            rv = torch.tensor(ridges, dtype=dtype, device=best.device)
+            return ([A.take_ridge(l, best) for l in log2u_r],
+                    [A.take_ridge(f, best) for f in params_r], rv[best])
 
+        if p.num_afmethod_iterations > 0:
+            af_stages = [
+                afmethod.make_af_layer_stage(o, unit_choices[li],
+                                             p.num_afmethod_iterations)
+                for li, o in enumerate(orders)]
+        else:
+            af_stages = None
+        if p.enable_learning:
+            train = training.make_train_fn(
+                orders, unit_choices, TRAINING_MAX_NUM_ITERATIONS,
+                TRAINING_LEARNING_RATE, TRAINING_LOSS_EPSILON)
+        else:
+            train = None
+
+        def finish_stage(raw_flag, silent_flag, pprev, pcoef, buf, log2u,
+                         params):
             int_coefs = []
             rshifts = []
             for li in range(len(orders)):
@@ -204,14 +224,27 @@ class TorchEncoder:
                 log2u, flat, x, _loss = fit_stage(x, order)
                 log2u_r.append(log2u)
                 params_r.append(flat)
-            return select_finish_stage(raw_flag, silent_flag, pprev, pcoef,
-                                       buf, x, log2u_r, params_r)
+            log2u, params, ridge_val = select_stage(x, log2u_r, params_r)
+            if af_stages is not None:
+                # AF-refined final pass: refit layer by layer with IRLS
+                # under the winning ridge, cascading residuals
+                xa = sig_r[0]
+                params = []
+                for stage, layer_log2u in zip(af_stages, log2u):
+                    flat, xa = stage(xa, layer_log2u, ridge_val)
+                    params.append(flat)
+            if train is not None:
+                # rows train independently, so padding rows (all zero:
+                # they stop after two iterations) change no real row
+                params, _iterations = train(sig_r[0], params, log2u)
+            return finish_stage(raw_flag, silent_flag, pprev, pcoef, buf,
+                                log2u, params)
 
         self._analyze_cache[n] = (analyze, num_analyze)
         return self._analyze_cache[n]
 
     def _side_layout(self, n: int):
-        """Offsets into the packed result (see select_finish_stage): flags,
+        """Offsets into the packed result (see finish_stage): flags,
         pre-emphasis state, per-layer (log2u, rshift), porder, the
         coefficient plane, the k2 plane, then the residual plane."""
         L = self.preset.num_layers

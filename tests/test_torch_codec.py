@@ -8,6 +8,7 @@ Rice parameter changes the stream.
 
 import numpy as np
 import pytest
+import torch
 
 from linne_tpu.codec import params as jax_params
 from linne_tpu.codec.encoder import TpuEncoder
@@ -107,10 +108,23 @@ def test_encode_block_matches_encode_whole():
 
 
 def test_learning_and_af_are_not_ported():
-    enc = TorchEncoder(device="cpu")
-    for kw in ({"enable_learning": True}, {"num_afmethod_iterations": 2}):
-        p = _param(0, 2048)
-        for k, v in kw.items():
-            setattr(p, k, v)
-        with pytest.raises(NotImplementedError):
+    """set_encode_parameter, which once refused -l and -a, takes them, and
+    a block encodes losslessly with each (bytes against TpuEncoder's:
+    tests/test_torch_afmethod.py, tests/test_torch_training.py)."""
+    sig = _signal(2048, 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the trainer's small ops; workers share cores
+    try:
+        for kw in ({"enable_learning": True},
+                   {"num_afmethod_iterations": 2}):
+            p = _param(0, 2048)
+            for k, v in kw.items():
+                setattr(p, k, v)
+            enc = TorchEncoder(device="cpu")
             enc.set_encode_parameter(p)
+            assert enc.parameter is p
+            data = enc.encode_whole([sig[0], sig[1]], 2048)
+            assert np.array_equal(np.stack(Decoder().decode_whole(data)),
+                                  sig)
+    finally:
+        torch.set_num_threads(threads)

@@ -205,3 +205,88 @@ def test_device_exact_encoder_on_card_matches_oracle(preset):
     assert enc.encode_whole([sig[0], sig[1]], sig.shape[1]) == ref
     assert all(ES.KERNEL_LAUNCHES[k] > before[k] for k in ES.KERNELS)
     assert enc.guard_rows_total == 6 and enc.guard_rows_flagged == 0
+
+
+# -- -a and -l on the batched encoder ----------------------------------------
+
+
+def test_af_refine_on_card_matches_cpu():
+    """cuBLAS and cuSOLVER sum in another order than the CPU, and IRLS
+    amplifies that (tests/test_torch_afmethod.py), hence rtol 1e-8. The
+    all-zero row's singular matrix gives zeros on both."""
+    from scipy.signal import lfilter
+
+    from linne_tpu_torch.ops import afmethod
+
+    _require_card()
+    rng = np.random.default_rng(7)
+    data = lfilter([1.0], [1.0, -0.5], rng.normal(0, 0.1, (9, 5000)), axis=1)
+    data[2] = 0.0
+    a0 = torch.from_numpy(rng.normal(0, 0.1, (9, 16)))
+    data = torch.from_numpy(data)
+    cpu = afmethod.af_refine(data, a0, 3)
+    card = afmethod.af_refine(data.cuda(), a0.cuda(), 3).cpu()
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-8,
+                               atol=1e-12)
+    assert not card[2].any() and not cpu[2].any()
+
+
+def test_train_fn_on_card_matches_cpu():
+    from linne_tpu_torch.constants import (
+        TRAINING_LEARNING_RATE,
+        TRAINING_LOSS_EPSILON,
+        TRAINING_MAX_NUM_ITERATIONS,
+    )
+    from linne_tpu_torch.ops import training
+    from linne_tpu_torch.ops.analysis import candidate_units
+
+    _require_card()
+    orders, n = [2, 32], 1280
+    units = [candidate_units(o, n) for o in orders]
+    rng = np.random.default_rng(4)
+    sig = rng.normal(0, 0.1, (5, 2, n))
+    sig[1, 0] = 0.0
+    params = [rng.normal(0, 0.1, (5, 2, o)) for o in orders]
+    log2u = [rng.choice([int(np.log2(u)) for u in c], (5, 2)).astype(np.int32)
+             for c in units]
+    # 100x the encoder's stopping threshold: ~130 iterations, not ~1400
+    train = training.make_train_fn(
+        orders, units, TRAINING_MAX_NUM_ITERATIONS, TRAINING_LEARNING_RATE,
+        100 * TRAINING_LOSS_EPSILON)
+    out = {}
+    for device in ("cpu", "cuda"):
+        out[device] = train(
+            torch.from_numpy(sig).to(device),
+            [torch.from_numpy(p).to(device) for p in params],
+            [torch.from_numpy(l).to(device) for l in log2u])
+    (cpu, cpu_its), (card, card_its) = out["cpu"], out["cuda"]
+    assert card_its == cpu_its
+    for c, g in zip(cpu, card):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-8,
+                                   atol=1e-15)
+
+
+def test_af_learning_round_trip_on_card():
+    """-a 2 -l on the card: lossless under both decoders (the card decode
+    launches the kernel), and within 0.1 % of the CPU port's size."""
+    _require_card()
+    spb = 2048
+    sigs = [_track(3 * spb + 300, 3), _track(2 * spb, 4)]
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=spb, preset=1, ch_process_method=1,
+        num_afmethod_iterations=2, enable_learning=True)
+    streams = {}
+    for device in ("cpu", "cuda"):
+        enc = TorchEncoder(batch_blocks=4, device=device)
+        enc.set_encode_parameter(param)
+        streams[device] = enc.encode_many([[s[0], s[1]] for s in sigs],
+                                          [s.shape[1] for s in sigs])
+    before = S.KERNEL_LAUNCHES
+    outs = TorchDecoder(device="cuda").decode_many(streams["cuda"])
+    assert S.KERNEL_LAUNCHES > before
+    for sig, data, ref, out in zip(sigs, streams["cuda"], streams["cpu"],
+                                   outs):
+        assert abs(len(data) - len(ref)) <= 0.001 * len(ref)
+        assert np.array_equal(np.stack(out), sig)
+        assert np.array_equal(np.stack(Decoder().decode_whole(data)), sig)

@@ -216,14 +216,10 @@ def test_cli_exact_device_equals_exact(tmp_path, wav_in, small_chunk, flags):
 
 
 def test_cli_refusals(tmp_path, wav_in):
-    """--threads needs --exact and a count >= 1 (exit 1, no file); the
-    batched encoder still refuses -a and -l (exit 2)."""
+    """--threads needs --exact and a count >= 1 (exit 1, no file)."""
     out = tmp_path / "x.lnn"
     assert cli.main(["-e", "--exact-device", "--threads", "2", wav_in,
                      str(out)]) == 1
     assert cli.main(["-e", "--exact", "--threads", "0", wav_in,
                      str(out)]) == 1
-    assert cli.main(["-e", "--device", "cpu", "-a", "1", wav_in,
-                     str(out)]) == 2
-    assert cli.main(["-e", "--device", "cpu", "-l", wav_in, str(out)]) == 2
     assert not out.exists()

@@ -153,3 +153,49 @@ def test_no_native_path_same_bytes(jax_streams, monkeypatch, preset, ch):
     out = Decoder().decode_whole(data)
     for c in range(ch):
         assert np.array_equal(out[c], sig[c])
+
+
+@pytest.mark.parametrize("preset,ch", [(0, 1), (7, 2)])
+def test_streaming_decoder_equals_jax(jax_streams, preset, ch):
+    """Pulls of uneven sizes, then seeks into the middle of a block, to a
+    block edge, to the end and back to 0: the same frames as the JAX
+    package's StreamingDecoder, and the signal's."""
+    from linne_tpu.codec.streaming import StreamingDecoder as JaxStreaming
+    from linne_tpu_torch.codec.streaming import StreamingDecoder
+
+    data = jax_streams[(preset, ch)]
+    sig = _signal(N, ch, 10 * preset + ch)
+    ours, theirs = StreamingDecoder(data), JaxStreaming(data)
+    pos = 0
+    for size in (1, 777, SPB, 3000, 5000):
+        a, b = ours.read(size), theirs.read(size)
+        assert np.array_equal(a, b)
+        assert np.array_equal(a, sig[:, pos : pos + size])
+        pos += a.shape[1]
+    assert ours.exhausted and theirs.exhausted and pos == N
+    for target in (SPB + 5, SPB, N, 0):
+        ours.seek(target)
+        theirs.seek(target)
+        a, b = ours.read(600), theirs.read(600)
+        assert np.array_equal(a, b)
+        assert np.array_equal(a, sig[:, target : target + 600])
+
+
+def test_file_backend_renders_jax_wav(jax_streams, tmp_path):
+    """Player + FileBackend render the stream to the same 16-bit WAV as
+    the JAX package's."""
+    from linne_tpu import player as jax_player
+    from linne_tpu.codec.streaming import StreamingDecoder as JaxStreaming
+    from linne_tpu_torch import player
+    from linne_tpu_torch.codec.streaming import StreamingDecoder
+
+    data = jax_streams[(4, 2)]
+    ours, theirs = tmp_path / "ours.wav", tmp_path / "theirs.wav"
+    n = player.Player(StreamingDecoder(data),
+                      player.FileBackend(str(ours))).run(1000)
+    m = jax_player.Player(JaxStreaming(data),
+                          jax_player.FileBackend(str(theirs))).run(1000)
+    assert n == m == N
+    assert ours.read_bytes() == theirs.read_bytes()
+    fmt, back = wav.read_wav(str(ours))
+    assert np.array_equal(np.stack(back), _signal(N, 2, 42))

@@ -21,6 +21,7 @@ _MODULES = sorted(
 def _run(code):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "PYTHONSTARTUP")}  # no sitecustomize
+    env["OMP_NUM_THREADS"] = "1"  # the test workers share the cores
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env)
 
@@ -176,6 +177,16 @@ assert cli.main(["-e", "--exact-device", "--device", "cpu",
 assert (tmp / "dev.lnn").read_bytes() == (tmp / "out.lnn").read_bytes()
 assert cli.main(["-d", str(tmp / "thr.lnn"), str(tmp / "back2.wav")]) == 0
 assert np.array_equal(read_wav(str(tmp / "back2.wav"))[1], wav)
+# noise, whose training stops after ~110 iterations (a pure tone trains
+# to the 2000-iteration cap)
+noise = np.round(np.random.default_rng(1).normal(0, 6000, (1, 10240 + 500)))
+noise = noise.astype(np.int32)
+write_wav(str(tmp / "noise.wav"), noise, 44100, 16)
+assert cli.main(["-e", "--device", "cpu", "-m", "1", "-a", "1", "-l",
+                 str(tmp / "noise.wav"), str(tmp / "al.lnn")]) == 0
+from linne_tpu_torch.codec.streaming import StreamingDecoder
+stream = StreamingDecoder((tmp / "al.lnn").read_bytes())
+assert np.array_equal(stream.read(noise.shape[1] + 1), noise)
 
 loaded = [m for m in sys.modules if m.split(".")[0] in ("linne_tpu", "jax")]
 assert not loaded, loaded
@@ -185,9 +196,10 @@ print("ok", len(mods))
 
 def test_port_runs_with_linne_tpu_and_jax_blocked(tmp_path):
     """Every module of the port imports, and the encoder (with a tail that
-    takes the host ExactEncoder), both decoders and the CLI's --exact,
-    --exact --threads 2 -a 1 and --exact-device encodes and its decode run
-    on the CPU, with imports of `linne_tpu` and jax refused."""
+    takes the host ExactEncoder), both decoders, the CLI's --exact,
+    --exact --threads 2 -a 1, --exact-device and batched -m 1 -a 1 -l
+    encodes, its decode and a StreamingDecoder read run on the CPU, with
+    imports of `linne_tpu` and jax refused."""
     code = (f"REPO = {str(REPO_ROOT)!r}\nTMP = {str(tmp_path)!r}\n"
             + _BLOCKED_RUN)
     r = _run(code)
