@@ -48,7 +48,16 @@ Phases (any failure raises and the script exits non-zero):
      events); then one 10 s track with -a 2 -l on the CPU port and on the
      card: both lossless, sizes within 0.1 %; the torch ops that one
      batch's AF stages and one training iteration dispatch, and device
-     time against wall time of one 64-block batch with each flag.
+     time against wall time of one 64-block batch with each flag;
+ 13. device list: every card when there are two or more, else ["cuda:0",
+     "cuda:0"]; TorchEncoder(devices=...) on the corpus of phase 4 gives
+     phase 4's streams, TorchDecoder(devices=...) decodes them losslessly
+     with synthesize_rows launched on every shard, and
+     DeviceExactEncoder(devices=...) gives the host oracle's streams with
+     0 rows flagged; sharded_analyze equals the unsharded call bit for
+     bit; one make_sharded_train_step step moves the params with a finite
+     loss; each path's wall time and realtime multiple beside the
+     one-device call's.
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
@@ -89,6 +98,7 @@ from linne_tpu_torch.ops import exact_device as ED
 from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import synthesis as S
 from linne_tpu_torch.ops import training
+from linne_tpu_torch.parallel import mesh
 from linne_tpu_torch.presets import PRESETS
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -500,9 +510,10 @@ def corpus():
     return [make_track(30.0, seed) for seed in range(4)]
 
 
-def exact_encode_phase(tracks) -> dict:
+def exact_encode_phase(tracks):
     """DeviceExactEncoder.encode_many on the corpus against the host
-    oracle. Returns the launch counts of that run."""
+    oracle. Returns the launch counts of that run and the oracle's
+    streams."""
     lengths = [t.shape[1] for t in tracks]
     seconds = sum(lengths) / RATE
     chans = [[t[0], t[1]] for t in tracks]
@@ -554,7 +565,7 @@ def exact_encode_phase(tracks) -> dict:
           f"({seconds / par_wall:.1f}x realtime), ExactEncoder on track 0 "
           f"{one_wall:.3f} s ({lengths[0] / RATE / one_wall:.1f}x realtime)")
     exact_profile_phase(chans, lengths, wall)
-    return launches
+    return launches, refs
 
 
 def exact_profile_phase(chans, lengths, unprofiled_wall) -> None:
@@ -1018,6 +1029,114 @@ def learn_af_dispatch_phase() -> None:
                   f"{k[:48]} {v:.3f} ms" for k, v in top))
 
 
+# -- block data parallelism over a device list --------------------------------
+
+
+def timed(fn):
+    """(fn(), wall seconds), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_list_phase(tracks, datas, exact_refs) -> None:
+    """Every path that takes a device list, on the corpus of phase 4,
+    against phase 4's streams and the host oracle's; each beside the
+    one-device call of the same work."""
+    count = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(count)] if count >= 2
+               else ["cuda:0", "cuda:0"])
+    note = ("" if count >= 2 else
+            "; one card serves every entry; not a scaling figure")
+    print(f"device list: {devices} ({count} card(s){note})")
+    lengths = [t.shape[1] for t in tracks]
+    seconds = sum(lengths) / RATE
+    chans = [[t[0], t[1]] for t in tracks]
+
+    def line(what, one_s, split_s):
+        return (f"device list {what}: {split_s:.3f} s "
+                f"({seconds / split_s:.1f}x realtime) over {len(devices)} "
+                f"entries, one device {one_s:.3f} s "
+                f"({seconds / one_s:.1f}x){note}")
+
+    one_enc = TorchEncoder(device="cuda")
+    one_enc.set_encode_parameter(param())
+    split_enc = TorchEncoder(devices=devices)
+    split_enc.set_encode_parameter(param())
+    one, one_s = timed(lambda: one_enc.encode_many(chans, lengths))
+    split, split_s = timed(lambda: split_enc.encode_many(chans, lengths))
+    require(one == datas, "one-device encode differs from phase 4's")
+    require(split == datas, "device-list encode differs from phase 4's")
+    print(line("encode (streams equal to phase 4's)", one_s, split_s))
+
+    dec = TorchDecoder(devices=devices)
+    per_shard = []
+    real_shard = dec._synthesize_shard
+
+    def counting(*args):
+        before = S.KERNEL_LAUNCHES
+        out = real_shard(*args)
+        per_shard.append(S.KERNEL_LAUNCHES - before)
+        return out
+
+    dec._synthesize_shard = counting
+    _, one_s = timed(lambda: TorchDecoder(device="cuda").decode_many(datas))
+    S.KERNEL_LAUNCHES = 0
+    decoded, split_s = timed(lambda: dec.decode_many(datas))
+    launches = S.KERNEL_LAUNCHES
+    require(all(k > 0 for k in per_shard),
+            f"a decode shard launched no synthesize_rows: {per_shard}")
+    for sig, out in zip(tracks, decoded):
+        require(lossless(sig, out), "device-list decode is not lossless")
+    print(line(f"decode (lossless; synthesize_rows launches {launches}, "
+               f"per (block length, shard) {per_shard})", one_s, split_s))
+
+    one_x = DE.DeviceExactEncoder(device="cuda")
+    one_x.set_encode_parameter(param())
+    split_x = DE.DeviceExactEncoder(devices=devices)
+    split_x.set_encode_parameter(param())
+    _, one_s = timed(lambda: one_x.encode_many(chans, lengths))
+    got, split_s = timed(lambda: split_x.encode_many(chans, lengths))
+    require(got == exact_refs,
+            "device-list exact-device streams differ from the host oracle")
+    require(split_x.guard_rows_flagged == 0
+            and split_x.guard_decisions_flagged == 0,
+            "the device-list exact-device guard flagged rows")
+    print(line(f"exact-device (host oracle's streams, guard rows "
+               f"{split_x.guard_rows_flagged} flagged of "
+               f"{split_x.guard_rows_total}, decisions "
+               f"{split_x.guard_decisions_flagged})", one_s, split_s))
+
+    blocks = np.stack([tracks[0][:, b * SPB:(b + 1) * SPB]
+                       for b in range(16)])
+    plain = one_enc._analyze_fn(SPB)[0](torch.from_numpy(blocks).cuda())
+    sharded = mesh.sharded_analyze(one_enc, mesh.make_block_mesh(devices),
+                                   blocks, SPB)
+    require(torch.equal(sharded, plain.cpu()),
+            "sharded_analyze differs from the unsharded call")
+    print(f"device list sharded_analyze: 16 blocks, bit-equal to the "
+          "unsharded call")
+
+    orders, n = (2, 32), 512
+    rows = 2 * len(devices)
+    rng = np.random.default_rng(17)
+    signal = torch.from_numpy(rng.normal(0, 0.1, (rows, 2, n))).cuda()
+    params = tuple(torch.zeros((rows, 2, o), dtype=torch.float64,
+                               device=signal.device) for o in orders)
+    step = mesh.make_sharded_train_step(mesh.make_block_mesh(devices),
+                                        orders, n, torch.float64)
+    new_params, _momentum, loss = step(params, signal,
+                                       tuple(torch.zeros_like(p)
+                                             for p in params))
+    require(bool(torch.isfinite(loss)), "train step loss is not finite")
+    require(any(bool(p.abs().sum() > 0) for p in new_params),
+            "train step left the params at zero")
+    print(f"device list train step: orders {orders}, n {n}, {rows} rows, "
+          f"loss {float(loss):.6e}, params moved")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1055,11 +1174,12 @@ def main() -> int:
 
     edge_err = exact_kernel_phase()
     tracks = corpus()
-    exact_launches = exact_encode_phase(tracks)
+    exact_launches, exact_refs = exact_encode_phase(tracks)
     exact = exact_calls_phase(tracks, clock_hz)
     exact_flags_phase()
     learn_af_phase(tracks, plain_multiple)
     learn_af_dispatch_phase()
+    device_list_phase(tracks, datas, exact_refs)
 
     replaces = {"autocorr_serial": 148, "levinson_serial": 203,
                 "serial_abs_mean": 378, "chain_predict": 349}

@@ -18,7 +18,8 @@ so on the CPU the bytes equal TpuEncoder's float64 CPU bytes.
 Each batch's int32 side tensor and int32 residual plane leave the device
 in one non-blocking copy into pinned host memory; a CUDA event per batch
 tells the drain when it has landed, and PIPELINE_DEPTH batches stay in
-flight.
+flight. With a device list (`devices=`, parallel/mesh.py) each batch's rows
+split into one shard per entry, each with its own copy and event.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from ..ops import analysis as A
 from ..ops import intops as I
 from ..ops import rice_search as R
 from ..ops import training
+from ..parallel.mesh import on_device, pad_rows, resolve_devices, shards
 
 _RAW_THRESHOLD = float(np.float32(0.95))
 
@@ -77,7 +79,7 @@ class TorchEncoder:
 
     def __init__(self, config: Optional[EncoderConfig] = None,
                  batch_blocks: int = 64, tail_mode: str = "auto",
-                 device="cuda"):
+                 device=None, devices=None):
         """`tail_mode`: how partial trailing blocks (length <
         num_samples_per_block) are encoded. "host" always uses the
         byte-exact host encoder, "device" always runs the batched stages,
@@ -87,12 +89,17 @@ class TorchEncoder:
         encode_many emit the same bytes for the same input, and so do
         default-constructed TorchEncoder and TpuEncoder.
 
-        `device`: where the stages run; "cpu" only when asked for."""
+        `device`: where the stages run (default "cuda"; "cpu" only when
+        asked for). `devices`: a device list instead (parallel/mesh.py):
+        every dispatched batch's rows split over it, one contiguous shard
+        per entry; blocks are independent, so the bytes equal the
+        one-device encode's. batch_blocks is rounded up to a multiple of
+        its length."""
+        self.devices = resolve_devices(device, devices)
         self.config = config or EncoderConfig()
         self.config.validate()
-        self.device = torch.device(device)
         self.dtype = ANALYSIS_DTYPE
-        self.batch_blocks = batch_blocks
+        self.batch_blocks = _roundup(batch_blocks, len(self.devices))
         if tail_mode not in ("auto", "device", "host"):
             raise ValueError(f"tail_mode {tail_mode!r}")
         self.tail_mode = tail_mode
@@ -431,16 +438,23 @@ class TorchEncoder:
             up = blocks.astype(np.int16)  # halve the upload
         else:
             up = np.ascontiguousarray(blocks, dtype=np.int32)
-        packed = fn(torch.from_numpy(up).to(self.device))
-        if self.device.type == "cuda":
-            host = torch.empty(packed.shape, dtype=torch.int32,
-                               pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        else:
-            host, ready = packed, None
-        return ((host, ready), blocks, n, real)
+        # rows beyond the real ones (zero, dropped in the drain) make the
+        # shards equal
+        up = pad_rows(up, len(self.devices))
+        outs = []
+        for d, a, b in shards(self.devices, up.shape[0]):
+            with on_device(d):
+                packed = fn(torch.from_numpy(up[a:b]).to(d))
+                if d.type == "cuda":
+                    host = torch.empty(packed.shape, dtype=torch.int32,
+                                       pin_memory=True)
+                    host.copy_(packed, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(d))
+                else:
+                    host, ready = packed, None
+            outs.append((host, ready))
+        return (outs, blocks, n, real)
 
     def _encode_batch(self, blocks: np.ndarray, n: int) -> bytes:
         """blocks: [B, C, >=n] int32; returns framed block bytes."""
@@ -543,12 +557,14 @@ class TorchEncoder:
 
     def _drain_batch(self, out, blocks: np.ndarray, n: int,
                      real: int) -> List[bytes]:
-        """Wait for one dispatched batch's packed result to reach the host
+        """Wait for one dispatched batch's packed shards to reach the host
         and frame its first `real` blocks."""
-        host, ready = out
-        if ready is not None:
-            ready.synchronize()
-        packed = host.numpy()                      # [B, C, side_k + n]
+        for _host, ready in out:
+            if ready is not None:
+                ready.synchronize()
+        parts = [host.numpy() for host, _ready in out]
+        packed = (parts[0] if len(parts) == 1
+                  else np.concatenate(parts))      # [B, C, side_k + n]
         p = self.parameter
         L = self.preset.num_layers
         off_layers, off_porder, off_coef, off_k2, side_k = (

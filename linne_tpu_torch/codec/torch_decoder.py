@@ -10,8 +10,11 @@ synthesized by the CUDA kernel, and scattered back with index_copy_.
 De-emphasis and the MS inverse run in the native library (or numpy).
 
 `decode_many` pools the rows of a whole corpus into the same launches, so
-a launch carries more independent recurrences as the corpus grows. For
-single-block latency use codec.decoder.
+a launch carries more independent recurrences as the corpus grows. With a
+device list (`devices=`, parallel/mesh.py) each block-length group's
+blocks split into contiguous shards, one per entry, and each shard runs
+the layer loop on its own device. For single-block latency use
+codec.decoder.
 """
 
 from __future__ import annotations
@@ -41,15 +44,20 @@ from ..format.huffman import get_codebook
 from ..presets import PRESETS
 
 from ..ops.synthesis import synthesize_rows
+from ..parallel.mesh import on_device, resolve_devices, shards
 
 
 class TorchDecoder:
     def __init__(self, config: Optional[DecoderConfig] = None,
-                 device="cuda"):
-        """`device`: where the reconstruction runs; "cpu" only when asked
-        for."""
+                 device=None, devices=None):
+        """`device`: where the reconstruction runs (default "cuda"; "cpu"
+        only when asked for). `devices`: a device list instead
+        (parallel/mesh.py): each block-length group's rows are split over
+        it, a contiguous shard of whole blocks per entry; rows are
+        independent through every layer's synthesis, so the output equals
+        the one-device decode's."""
+        self.devices = resolve_devices(device, devices)
         self.config = config or DecoderConfig()
-        self.device = torch.device(device)
         self.header = None
 
     # -- host entropy stage --------------------------------------------------
@@ -159,14 +167,30 @@ class TorchDecoder:
                     by_len.setdefault(n, []).append((si, i))
         out_groups = []
         for n, members_n in by_len.items():
-            # block at position pos owns rows pos*nch .. pos*nch + nch - 1
-            stacked = np.concatenate([by_key[m][0] for m in members_n])
-            R = torch.from_numpy(stacked).to(self.device)  # [rows, n] int32
+            # every shard is enqueued before any is read back
+            shard_R = [self._synthesize_shard(d, members_n[a:b], by_key, n,
+                                              orders, nch)
+                       for d, a, b in shards(self.devices, len(members_n))]
+            host = [R.cpu().numpy() for R in shard_R]
+            out_groups.append((n, host[0] if len(host) == 1
+                               else np.concatenate(host), members_n))
+        return out_groups
+
+    @staticmethod
+    def _synthesize_shard(device, members, by_key, n, orders, nch
+                          ) -> torch.Tensor:
+        """The reversed layer cascade of one contiguous shard of a
+        block-length group's compress blocks, on `device`. Returns R [rows,
+        n] int32 there, where block `members[pos]` owns the nch rows from
+        pos * nch."""
+        stacked = np.concatenate([by_key[m][0] for m in members])
+        with on_device(device):
+            R = torch.from_numpy(stacked).to(device)  # [rows, n] int32
             for li in range(len(orders) - 1, -1, -1):
                 base_off = int(orders[:li].sum())
                 order = int(orders[li])
                 groups = {}
-                for pos, key in enumerate(members_n):
+                for pos, key in enumerate(members):
                     _r, coefs, log2u, rshifts, _pp, _pc, _c = by_key[key]
                     for ch in range(nch):
                         u = 1 << int(log2u[ch, li])
@@ -180,20 +204,17 @@ class TorchDecoder:
                         g[2].append(rshifts[ch, li])
                 for (u, ns, npu), (rows, crows, rsv) in groups.items():
                     m = len(rows)
-                    idx = torch.tensor(rows, dtype=torch.int64,
-                                       device=self.device)
+                    idx = torch.tensor(rows, dtype=torch.int64, device=device)
                     c = torch.from_numpy(
-                        np.stack(crows).reshape(m * u, npu)).to(self.device)
+                        np.stack(crows).reshape(m * u, npu)).to(device)
                     rs = torch.from_numpy(
-                        np.repeat(np.asarray(rsv, np.int32), u)).to(
-                        self.device)
+                        np.repeat(np.asarray(rsv, np.int32), u)).to(device)
                     sel = R.index_select(0, idx)           # [m, n]
                     seg = sel[:, : u * ns].reshape(m * u, ns).contiguous()
                     sel[:, : u * ns] = synthesize_rows(seg, c, rs).reshape(
                         m, u * ns)
                     R.index_copy_(0, idx, sel)
-            out_groups.append((n, R.cpu().numpy(), members_n))
-        return out_groups
+        return R
 
     # -- host finishing stage ------------------------------------------------
 

@@ -29,6 +29,10 @@ host-side (native) per block in `_fit_quantize_channel`, seeded with the
 device-prefit params. Tail blocks and any shape `exact_device.supported`
 rejects take the host oracle fit for that block, preserving arena order.
 
+With a device list (`devices=`, parallel/mesh.py) each fit chunk's rows
+split into one contiguous shard per entry: fit rows are independent, so
+the bytes equal the one-device encode's.
+
 The card's float64 is IEEE and the fit runs the strict serial graph there
 (ops/exact_device.py), so the device fit is bit-identical to the oracle by
 construction. The margin guard stays all the same: every decision (unit
@@ -47,6 +51,7 @@ import torch
 from ..constants import CH_PROCESS_MS, LPC_COEF_BITWIDTH, NUM_PREEMPH_FILTERS
 from ..codec.params import EncoderConfig, EncodeParameter
 from ..ops import exact_device as _dev
+from ..parallel.mesh import on_device, resolve_devices, shards
 from .encoder import ExactEncoder
 from .filters import ms_conversion, preemphasis, preemphasis_calculate_coefficient
 
@@ -97,33 +102,37 @@ def preemph_plane_side(parameter, channels: Sequence[np.ndarray], n: int
 
 
 class _Pending(NamedTuple):
-    """One dispatched fit chunk: its two packed buffers (pinned host copies
-    in flight on the card, the results themselves on the CPU), the CUDA
-    event that marks the copies done (None on the CPU) and its count of
-    real (unpadded) rows."""
-    f64: torch.Tensor
-    i32: torch.Tensor
-    done: "torch.cuda.Event | None"
+    """One dispatched fit chunk: per row shard, its two packed buffers
+    (pinned host copies in flight on a card, the results themselves on the
+    CPU) and the CUDA event that marks the copies done (None on the CPU);
+    and the chunk's count of real (unpadded) rows."""
+    parts: List[Tuple[torch.Tensor, torch.Tensor, "torch.cuda.Event | None"]]
     valid: int
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray]:
-        if self.done is not None:
-            self.done.synchronize()
-        return (self.f64.numpy()[: self.valid],
-                self.i32.numpy()[: self.valid])
+        for _f64, _i32, done in self.parts:
+            if done is not None:
+                done.synchronize()
+        return tuple(
+            np.concatenate([part[k].numpy() for part in self.parts]
+                           )[: self.valid] for k in (0, 1))
 
 
 class DeviceExactEncoder(ExactEncoder):
     """ExactEncoder with the per-block network fitting batched on device."""
 
-    def __init__(self, config: EncoderConfig | None = None,
-                 device="cuda"):
+    def __init__(self, config: EncoderConfig | None = None, device=None,
+                 devices=None):
+        """`device`: where the fits run (default "cuda"; "cpu" only when
+        asked for). `devices`: a device list instead (parallel/mesh.py):
+        each fit chunk's rows split over it; the chunk size must divide
+        by its length."""
         super().__init__(config)
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "DeviceExactEncoder: no CUDA device (torch.cuda.is_available()"
-                " is false); pass device='cpu' to fit on the CPU")
+        self._devices = resolve_devices(device, devices)
+        if _CHUNK % len(self._devices):
+            raise ValueError(
+                f"the fit chunk of {_CHUNK} rows does not divide over "
+                f"{len(self._devices)} devices")
         self._fit_cache: Dict[int, dict] = {}
         # full-block MS+preemph planes + side stages from the prefit,
         # consumed (popped) by _ms_preemph_stages so the payload encode
@@ -233,13 +242,18 @@ class DeviceExactEncoder(ExactEncoder):
             return None
         return row
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """One host array as a tensor on the encoder's device (to the card
-        through pinned memory, so the copy does not wait for the stream)."""
+    def _put(self, arr: np.ndarray) -> List[torch.Tensor]:
+        """One host array's rows as one tensor per shard, each on its
+        device (to a card through pinned memory, so the copy does not wait
+        for the stream)."""
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self._device.type == "cuda":
-            return t.pin_memory().to(self._device, non_blocking=True)
-        return t.to(self._device)
+        out = []
+        for d, a, b in shards(self._devices, t.shape[0]):
+            if d.type == "cuda":
+                out.append(t[a:b].pin_memory().to(d, non_blocking=True))
+            else:
+                out.append(t[a:b].to(d))
+        return out
 
     def _final_pass_rows(self, rows: np.ndarray, fetched: dict) -> list:
         """The -a N final refit pass (linne_network.c:628-629) over the
@@ -283,12 +297,13 @@ class DeviceExactEncoder(ExactEncoder):
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad, bs), np.int32)])
                 tchunk = np.concatenate([tchunk, np.zeros(pad)])
-            buf = to_f64(self._put(chunk))
+            # one entry per row shard, each on its device
+            buf = _each(to_f64, self._put(chunk))
             t = self._put(tchunk)
             for li, P in enumerate(lps):
-                s = searches[li](buf, t)
-                units = s["units"].cpu().numpy()
-                buf_np = buf.cpu().numpy()  # one copy to the host per layer
+                s = _each(searches[li], buf, t)
+                units = _host(x["units"] for x in s)
+                buf_np = _host(buf)  # one copy to the host per layer
                 params = np.zeros((chunk.shape[0], P), np.float64)
                 for r in range(C):
                     u = int(units[r])
@@ -299,11 +314,12 @@ class DeviceExactEncoder(ExactEncoder):
                             buf_np[r, unit * ns :], ns, npu, af,
                             WINDOW_WELCH, float(tchunk[r]))
                         params[r, unit * npu : (unit + 1) * npu] = coefs[::-1]
-                buf = forwards[li](buf, self._put(params), s["best"])
-                parc = s["parcor"].cpu().numpy()
-                zc = s["zc"].cpu().numpy()
-                best = s["best"].cpu().numpy()
-                smargin = s["margin"].cpu().numpy()
+                buf = _each(forwards[li], buf, self._put(params),
+                            [x["best"] for x in s])
+                parc = _host(x["parcor"] for x in s)
+                zc = _host(x["zc"] for x in s)
+                best = _host(x["best"] for x in s)
+                smargin = _host(x["margin"] for x in s)
                 for r in range(C):
                     g = out_rows[start + r]
                     g["units"].append(int(units[r]))
@@ -325,10 +341,11 @@ class DeviceExactEncoder(ExactEncoder):
 
     def _dispatch_fit_chunks(self, rows: np.ndarray, fit, bs: int
                              ) -> List[_Pending]:
-        """Launch the fit of [rows, bs] inputs in _CHUNK-row batches on the
-        current stream, each followed by one non-blocking copy of its two
-        packed buffers into pinned host memory and a CUDA event; nothing
-        waits for the card here, so it computes chunk i while the host
+        """Launch the fit of [rows, bs] inputs in _CHUNK-row batches, each
+        chunk's row shards on their devices' current streams, each shard
+        followed by one non-blocking copy of its two packed buffers into
+        pinned host memory and a CUDA event recorded on its device; nothing
+        waits for a card here, so it computes chunk i while the host
         enqueues chunk i + 1. On the CPU each fit runs to its end."""
         pending = []
         for start in range(0, rows.shape[0], _CHUNK):
@@ -337,14 +354,18 @@ class DeviceExactEncoder(ExactEncoder):
             if pad:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad, bs), np.int32)])
-            f64, i32 = fit(self._put(chunk))
-            done = None
-            if f64.device.type == "cuda":
-                f64 = _pinned_copy(f64)
-                i32 = _pinned_copy(i32)
-                done = torch.cuda.Event()
-                done.record()
-            pending.append(_Pending(f64, i32, done, chunk.shape[0] - pad))
+            parts = []
+            for x in self._put(chunk):
+                with on_device(x.device):
+                    f64, i32 = fit(x)
+                    done = None
+                    if x.device.type == "cuda":
+                        f64 = _pinned_copy(f64)
+                        i32 = _pinned_copy(i32)
+                        done = torch.cuda.Event()
+                        done.record()
+                parts.append((f64, i32, done))
+            pending.append(_Pending(parts, chunk.shape[0] - pad))
         return pending
 
     # -- decision-margin guard ------------------------------------------------
@@ -489,7 +510,7 @@ class DeviceExactEncoder(ExactEncoder):
         outs: List[bytes] = []
         if not _dev.supported(self.preset.layer_num_params, bs):
             for chans, ns in zip(tracks, num_samples):
-                enc = DeviceExactEncoder(self.config, self._device)
+                enc = DeviceExactEncoder(self.config, devices=self._devices)
                 enc.set_encode_parameter(p)
                 outs.append(enc.encode_whole(chans, ns))
             return outs
@@ -554,7 +575,7 @@ class DeviceExactEncoder(ExactEncoder):
                 return self._apply_guard(_fr(r))
 
         for ti, (chans, ns) in enumerate(zip(tracks, num_samples)):
-            enc = DeviceExactEncoder(self.config, self._device)
+            enc = DeviceExactEncoder(self.config, devices=self._devices)
             enc.set_encode_parameter(p)
             if get_row is not None:
                 enc._fit_cache = {
@@ -616,6 +637,21 @@ class DeviceExactEncoder(ExactEncoder):
             return _row_view(results[gi], r - int(bounds[gi]))
 
         return get_row
+
+
+def _each(fn, *shard_args) -> list:
+    """fn over the row shards, shard by shard, each with its device
+    current."""
+    out = []
+    for args in zip(*shard_args):
+        with on_device(args[0].device):
+            out.append(fn(*args))
+    return out
+
+
+def _host(tensors) -> np.ndarray:
+    """Row shards joined in order on the host."""
+    return np.concatenate([t.cpu().numpy() for t in tensors])
 
 
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:

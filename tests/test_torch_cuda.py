@@ -1,7 +1,8 @@
 """The port on a CUDA card: the synthesis kernel and the byte-exact
 encoder's serial float64 kernels against their plain torch versions, the
-encoder and decoder on the card against the CPU, and the byte-exact device
-encoder on the card against the host oracle.
+encoder and decoder on the card against the CPU, the byte-exact device
+encoder on the card against the host oracle, and the device-list split of
+the encoders and the decoder against one card.
 
 Every test skips without a card. The file imports no jax, so it also runs
 on a machine without it:
@@ -290,3 +291,131 @@ def test_af_learning_round_trip_on_card():
         assert abs(len(data) - len(ref)) <= 0.001 * len(ref)
         assert np.array_equal(np.stack(out), sig)
         assert np.array_equal(np.stack(Decoder().decode_whole(data)), sig)
+
+
+# -- block data parallelism over a device list ---------------------------------
+
+# a CPU entry beside the card catches tensors made on the wrong device; two
+# entries on one card are all a one-card machine can split over; "every
+# card" needs two or more
+_DEVICE_LISTS = [["cpu", "cuda:0"], ["cuda:0", "cuda:0"], "every card"]
+
+
+def _device_list(devices, rows=None):
+    """The list to split over; "every card" skips below two cards, or
+    where `rows` do not divide over the cards."""
+    if devices != "every card":
+        return devices
+    count = torch.cuda.device_count()
+    if count < 2 or (rows is not None and rows % count):
+        pytest.skip(f"needs two or more cards ({count} here) that divide "
+                    f"{rows} rows" if rows else
+                    f"needs two or more cards ({count} here)")
+    return [f"cuda:{i}" for i in range(count)]
+
+
+def _streams(preset):
+    spb = 2048
+    sigs = [_track(3 * spb + 300, preset + 30), _track(2 * spb, preset + 31)]
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=spb, preset=preset, ch_process_method=1)
+    return sigs, param
+
+
+@pytest.mark.parametrize("devices", _DEVICE_LISTS)
+def test_decoder_device_list_on_card(devices):
+    """Integer synthesis: the split decode equals the one-card decode
+    whatever the entries, and the card's shard launches the kernel."""
+    _require_card()
+    devices = _device_list(devices)
+    sigs, param = _streams(7)
+    enc = TorchEncoder(batch_blocks=4, device="cuda")
+    enc.set_encode_parameter(param)
+    datas = enc.encode_many([[s[0], s[1]] for s in sigs],
+                            [s.shape[1] for s in sigs]) * 2
+    one = TorchDecoder(device="cuda").decode_many(datas)
+    before = S.KERNEL_LAUNCHES
+    split = TorchDecoder(devices=devices).decode_many(datas)
+    assert S.KERNEL_LAUNCHES > before
+    for sig, a, b in zip(sigs * 2, one, split):
+        assert np.array_equal(np.stack(b), np.stack(a))
+        assert np.array_equal(np.stack(b), sig)
+
+
+@pytest.mark.parametrize("devices", _DEVICE_LISTS)
+def test_device_exact_encoder_device_list_on_card(devices):
+    """Strict float64 fits: the split encode gives the one-card bytes and
+    the host oracle's, with no row flagged."""
+    _require_card()
+    devices = _device_list(devices, rows=128)
+    sigs, param = _streams(1)
+    chans = [[s[0], s[1]] for s in sigs]
+    lengths = [s.shape[1] for s in sigs]
+    refs = []
+    for c, n in zip(chans, lengths):
+        host = ExactEncoder()
+        host.set_encode_parameter(param)
+        refs.append(host.encode_whole(c, n))
+    one = DeviceExactEncoder(device="cuda")
+    one.set_encode_parameter(param)
+    split = DeviceExactEncoder(devices=devices)
+    split.set_encode_parameter(param)
+    assert one.encode_many(chans, lengths) == refs
+    assert split.encode_many(chans, lengths) == refs
+    assert split.guard_rows_flagged == 0
+
+
+@pytest.mark.parametrize("devices", _DEVICE_LISTS[1:])
+def test_encoder_device_list_on_card(devices):
+    """The split encode gives the one-card bytes."""
+    _require_card()
+    devices = _device_list(devices)
+    sigs, param = _streams(7)
+    chans = [[s[0], s[1]] for s in sigs]
+    lengths = [s.shape[1] for s in sigs]
+    streams = []
+    for kw in ({"device": "cuda"}, {"devices": devices}):
+        enc = TorchEncoder(batch_blocks=4, **kw)
+        enc.set_encode_parameter(param)
+        streams.append(enc.encode_many(chans, lengths))
+    assert streams[1] == streams[0]
+
+
+@pytest.mark.parametrize("devices", _DEVICE_LISTS)
+def test_mesh_helpers_on_card(devices):
+    """sharded_analyze over the list equals the one-card call bit for bit;
+    one sharded train step matches the same split on the CPU (each shard's
+    loss is its own mean, so the split sets the gradient's scale; cuFFT
+    and the CPU's FFT round differently in the last bits)."""
+    from linne_tpu_torch.parallel import mesh
+
+    _require_card()
+    devices = mesh.make_block_mesh(_device_list(devices))
+    spb = 2048
+    sig = _track(8 * spb, 40)
+    blocks = np.ascontiguousarray(sig.reshape(2, 8, spb).transpose(1, 0, 2))
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=spb, preset=7, ch_process_method=1))
+    one = enc._analyze_fn(spb)[0](torch.from_numpy(blocks).cuda()).cpu()
+    assert torch.equal(mesh.sharded_analyze(enc, devices, blocks, spb), one)
+
+    orders, n = (2, 32), 512
+    rows = 2 * len(devices)
+    rng = np.random.default_rng(41)
+    signal = torch.from_numpy(rng.normal(0, 0.1, (rows, 2, n)))
+    params = tuple(torch.from_numpy(rng.normal(0, 0.05, (rows, 2, o)))
+                   for o in orders)
+    momentum = tuple(torch.zeros_like(p) for p in params)
+    out = {}
+    for name, where in (("cpu", [torch.device("cpu")] * len(devices)),
+                        ("split", devices)):
+        step = mesh.make_sharded_train_step(where, orders, n, torch.float64)
+        out[name] = step(params, signal, momentum)
+    for want, got in zip(out["cpu"][0] + out["cpu"][1],
+                         out["split"][0] + out["split"][1]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-15)
+    assert abs(float(out["split"][2]) - float(out["cpu"][2])) <= 1e-12

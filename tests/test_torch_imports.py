@@ -161,8 +161,18 @@ assert compress_viable(enc.preset, spb, n - 2 * spb)
 data = enc.encode_whole([sig[0]], n)
 assert np.array_equal(TorchDecoder(device="cpu").decode_whole(data)[0], sig[0])
 assert np.array_equal(Decoder().decode_whole(data)[0], sig[0])
+split = TorchEncoder(batch_blocks=2, devices=["cpu", "cpu"])
+split.set_encode_parameter(enc.parameter)
+assert split.encode_whole([sig[0]], n) == data
+assert np.array_equal(
+    TorchDecoder(devices=["cpu"] * 3).decode_whole(data)[0], sig[0])
 
 tmp = pathlib.Path(TMP)
+from linne_tpu_torch.utils.profiling import StageTimer, trace
+timer = StageTimer()
+with trace(str(tmp / "trace")), timer.stage("decode"):
+    TorchDecoder(device="cpu").decode_whole(data)
+assert list((tmp / "trace").glob("*.pt.trace.json")) and timer.counts["decode"] == 1
 wav = np.round(6000 * np.sin(2 * np.pi * 220 * np.arange(2 * 10240) / 44100)
                + rng.normal(0, 200, 2 * 10240)).astype(np.int32)[None]
 write_wav(str(tmp / "in.wav"), wav, 44100, 16)
@@ -196,10 +206,11 @@ print("ok", len(mods))
 
 def test_port_runs_with_linne_tpu_and_jax_blocked(tmp_path):
     """Every module of the port imports, and the encoder (with a tail that
-    takes the host ExactEncoder), both decoders, the CLI's --exact,
-    --exact --threads 2 -a 1, --exact-device and batched -m 1 -a 1 -l
-    encodes, its decode and a StreamingDecoder read run on the CPU, with
-    imports of `linne_tpu` and jax refused."""
+    takes the host ExactEncoder, and over a two-entry device list), both
+    decoders (the pooled one over three entries too), a profiling trace,
+    the CLI's --exact, --exact --threads 2 -a 1, --exact-device and
+    batched -m 1 -a 1 -l encodes, its decode and a StreamingDecoder read
+    run on the CPU, with imports of `linne_tpu` and jax refused."""
     code = (f"REPO = {str(REPO_ROOT)!r}\nTMP = {str(tmp_path)!r}\n"
             + _BLOCKED_RUN)
     r = _run(code)
