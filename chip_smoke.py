@@ -15,11 +15,12 @@ Phases (any failure raises and the script exits non-zero):
   4. main path: TorchEncoder.encode_many on a seeded 4 x 30 s stereo corpus
      at preset 7, then TorchDecoder.decode_many, both on the card; every
      stream must decode losslessly (also under the host Decoder) and the
-     decode must have launched the kernel;
+     decode must have launched the kernel; the W of each batch, the
+     overflow rows and the bytes each transfer moved;
   5. decode groups: every (rows, ns, npu) launch of that decode, recorded
      in a second decode, checked bit for bit against the plain version and
      timed (CUDA events) beside its bound; then one decode under
-     torch.profiler for the device-time breakdown;
+     torch.profiler for the device-time breakdown (copies apart);
   6. CLI: `python -m linne_tpu_torch.cli -e -m 7`, `-e -m 7 -a 2` and
      `-e -m 7 -l` on a 10 s WAV (each lossless), and `-e --exact-device
      -m 7` against `-e --exact` on it, byte for byte;
@@ -57,7 +58,15 @@ Phases (any failure raises and the script exits non-zero):
      0 rows flagged; sharded_analyze equals the unsharded call bit for
      bit; one make_sharded_train_step step moves the params with a finite
      loss; each path's wall time and realtime multiple beside the
-     one-device call's.
+     one-device call's;
+ 14. slim transfers and routes: pack_plane_words on the card bit-equal to
+     the CPU at seven widths, inverted by native.unpack_bits; the CUDA-event
+     time of one batch's packed copy beside its int32 residual's; the
+     corpus with a 6-bit residual class (phase 4's streams, every overflow
+     row fetched) and with a 6-bit download (lossless, every row flagged);
+     the fit stages of one batch on the matrix-unit and on the lag/FFT
+     routes (span, device time, torch ops), the plain -e corpus encode in 5
+     alternating pairs of the two, and the card's default route.
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
@@ -76,7 +85,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from chip_pairs import make_track
+from linne_tpu_torch import native
 from linne_tpu_torch.codec.decoder import Decoder
+from linne_tpu_torch.codec import encoder as E
 from linne_tpu_torch.codec import torch_decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
 from linne_tpu_torch.codec.params import EncodeParameter
@@ -94,7 +106,9 @@ from linne_tpu_torch.io.wav import write_wav
 from linne_tpu_torch.ops import _kernels
 from linne_tpu_torch.ops import afmethod
 from linne_tpu_torch.ops import analysis as A
+from linne_tpu_torch.ops import bitpack
 from linne_tpu_torch.ops import exact_device as ED
+from linne_tpu_torch.ops import intops as I
 from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import synthesis as S
 from linne_tpu_torch.ops import training
@@ -116,27 +130,6 @@ HBM_BYTES_PER_S = 3.35e12
 # (reckoned, not measured on the card).
 FP64_OPS_PER_CLK = 64 * 132
 DADD_CYCLES = 8
-
-
-def make_track(seconds: float, seed: int) -> np.ndarray:
-    """Stereo 16-bit audio-like material: detuned partials plus a filtered
-    noise floor (the recipe of bench.py:make_signal), seeded per track."""
-    n = int(seconds * RATE)
-    rng = np.random.default_rng(seed)
-    t = np.arange(n) / RATE
-    base = 110.0 * (1.0 + 0.25 * (seed % 4))
-    left = np.zeros(n)
-    right = np.zeros(n)
-    for k in range(1, 9):
-        amp = 9000.0 / k
-        left += amp * np.sin(2 * np.pi * base * k * t + 0.1 * k)
-        right += amp * np.sin(2 * np.pi * (base * k + 0.5) * t)
-    noise = np.convolve(rng.normal(0, 1, n + 64), np.exp(-np.arange(32) / 8.0),
-                        mode="same")[:n]
-    left += 120 * noise
-    right += 120 * rng.normal(0, 1, n)
-    s = np.stack([left, right])
-    return np.clip(np.round(s * 0.6), -32768, 32767).astype(np.int32)
 
 
 def param(preset: int = PRESET, af: int = 0,
@@ -281,7 +274,38 @@ def main_path_phase():
           f"({seconds / (t2 - t1):.1f}x realtime), "
           f"size {100.0 * out_bytes / in_bytes:.3f} % of PCM, "
           f"kernel launches {launches}")
+    transfer_report(enc, dec, datas)
     return launches, datas, seconds / (t1 - t0)
+
+
+def compress_samples(datas) -> int:
+    """Samples in the compress blocks of the streams, every channel: what
+    the pooled decode moves each way."""
+    samples = 0
+    for data in datas:
+        header, _orders, blocks = TorchDecoder(device="cpu")._parse_stream(
+            data)
+        for _start, n, kind, _b in blocks:
+            if kind == "compress":
+                samples += header.num_channels * n
+    return samples
+
+
+def transfer_report(enc, dec, datas) -> None:
+    """The bytes the encode and the decode moved, beside the int32 planes
+    that the same work would move without the W-bit packing."""
+    batches = len(enc.batch_widths)
+    full = 64 * 2 * SPB * 4  # one 64-block batch's int32 residual plane
+    print(f"encode transfers: {batches} batches at W {enc.batch_widths}, "
+          f"overflow rows fetched {enc.overflow_rows}, "
+          f"{enc.bytes_to_host} bytes to the host "
+          f"({enc.bytes_to_host / batches:.0f} a batch; a 64-block batch's "
+          f"int32 residual plane alone is {full} bytes)")
+    samples = compress_samples(datas)
+    print(f"decode transfers: up {dec.bytes_up} bytes, down "
+          f"{dec.bytes_down} bytes (int32 rows would be {4 * samples} each "
+          f"way), download chunks {dec.download_chunks}, flagged rows "
+          f"{dec.flagged_rows}")
 
 
 def decode_groups_phase(datas) -> int:
@@ -418,9 +442,11 @@ def cross_device_phase() -> None:
     same = sum(x == y for x, y in zip(a, b))
     require(abs(len(a) - len(b)) <= 0.001 * len(a),
             f"cpu and cuda sizes differ by more than 0.1%: {len(a)} vs {len(b)}")
-    print(f"cross-device: cpu {len(a)} bytes, cuda {len(b)} bytes, "
-          f"identical streams: {a == b}, bytes equal at "
-          f"{same} of {max(len(a), len(b))} positions")
+    route = ("matmul" if A._use_matmul_routes(torch.zeros(1, device="cuda"))
+             else "lag/FFT")
+    print(f"cross-device: cpu (lag/FFT routes) {len(a)} bytes, cuda "
+          f"({route} routes) {len(b)} bytes, identical streams: {a == b}, "
+          f"bytes equal at {same} of {max(len(a), len(b))} positions")
 
 
 # -- the byte-exact device encoder -------------------------------------------
@@ -1114,7 +1140,7 @@ def device_list_phase(tracks, datas, exact_refs) -> None:
     plain = one_enc._analyze_fn(SPB)[0](torch.from_numpy(blocks).cuda())
     sharded = mesh.sharded_analyze(one_enc, mesh.make_block_mesh(devices),
                                    blocks, SPB)
-    require(torch.equal(sharded, plain.cpu()),
+    require(torch.equal(sharded, plain["packed"].cpu()),
             "sharded_analyze differs from the unsharded call")
     print(f"device list sharded_analyze: 16 blocks, bit-equal to the "
           "unsharded call")
@@ -1135,6 +1161,196 @@ def device_list_phase(tracks, datas, exact_refs) -> None:
             "train step left the params at zero")
     print(f"device list train step: orders {orders}, n {n}, {rows} rows, "
           f"loss {float(loss):.6e}, params moved")
+
+
+# -- the slim transfers and the matrix-unit routes ----------------------------
+
+
+PACK_WIDTHS = (10, 12, 14, 18, 20, 24, 30)
+
+
+def packing_phase() -> None:
+    """pack_plane_words on the card against the CPU, bit for bit, and
+    native.unpack_bits as its inverse."""
+    rng = np.random.default_rng(14)
+    n = SPB + 7  # ragged for every group size
+    x = rng.integers(-2**31, 2**31, (128, n), dtype=np.int64)
+    x = x.astype(np.int32)
+    x[0, 0], x[1, -1] = -2**31, 2**31 - 1
+    on_card = torch.from_numpy(x).cuda()
+    for w in PACK_WIDTHS:
+        card = bitpack.pack_plane_words(on_card, w).cpu()
+        require(torch.equal(card, bitpack.pack_plane_words(
+            torch.from_numpy(x), w)), f"pack_plane_words at W={w}: the "
+            "card's words differ from the CPU's")
+        g, _ = bitpack.pack_geometry(w)
+        sign = 1 << (w - 1)
+        low = ((x.astype(np.int64) & ((1 << w) - 1)) ^ sign) - sign
+        back = native.unpack_bits(card.numpy(), w, -(-n // g) * g)[:, :n]
+        require(np.array_equal(back, low),
+                f"native.unpack_bits does not invert W={w}")
+    print(f"packing: pack_plane_words on the card bit-equal to the CPU at W "
+          f"{list(PACK_WIDTHS)} on 128 x {n} int32 rows with both int32 "
+          "extremes; native.unpack_bits inverts each")
+
+
+def copy_phase(tracks) -> None:
+    """CUDA-event time of one 64-block batch's packed copy to pinned host
+    memory beside a copy of its int32 residual tensor (both exist on the
+    card after the batch's stages), in alternating turns."""
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(param())
+    blocks = np.stack([tracks[0][:, b * SPB:(b + 1) * SPB]
+                       for b in range(64)]).astype(np.int16)
+    W = E._res_pack_width(16)
+    out = enc._analyze_fn(SPB)[0](torch.from_numpy(blocks).cuda(), W)
+    packed, residual = out["packed"], out["residual"].contiguous()
+    to_packed = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+    to_int32 = torch.empty(residual.shape, dtype=torch.int32,
+                           pin_memory=True)
+    times = {"packed": [], "int32": []}
+    for _ in range(5):
+        times["packed"].append(cuda_ms(
+            lambda: to_packed.copy_(packed, non_blocking=True), reps=20))
+        times["int32"].append(cuda_ms(
+            lambda: to_int32.copy_(residual, non_blocking=True), reps=20))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    nbytes = {"packed": packed.numel() * 4, "int32": residual.numel() * 4}
+    print(f"encode copy, one 64-block batch at W {W}: packed (side columns "
+          f"+ W-bit plane) {nbytes['packed']} bytes in {med['packed']:.4f} "
+          f"ms ({nbytes['packed'] / med['packed'] / 1e6:.1f} GB/s), int32 "
+          f"residual {nbytes['int32']} bytes in {med['int32']:.4f} ms "
+          f"({nbytes['int32'] / med['int32'] / 1e6:.1f} GB/s); medians of 5 "
+          f"turns of 20 copies: packed {times['packed']}, int32 "
+          f"{times['int32']}")
+
+
+def forced_overflow_phase(tracks, datas) -> None:
+    """A 6-bit residual class: every live block's int32 rows are fetched
+    from the card, and the streams equal phase 4's. Then a 6-bit download:
+    every row is flagged and fetched again at int32; lossless."""
+    chans = [[t[0], t[1]] for t in tracks]
+    lengths = [t.shape[1] for t in tracks]
+    classes = E._res_width_classes
+    E._res_width_classes = lambda bps: (6,)
+    try:
+        enc = TorchEncoder(device="cuda")
+        enc.set_encode_parameter(param())
+        got, secs = timed(lambda: enc.encode_many(chans, lengths))
+    finally:
+        E._res_width_classes = classes
+    require(got == datas, "the forced-overflow encode differs from phase 4")
+    require(enc.overflow_rows > 0, "no overflow row was fetched at W=6")
+    print(f"forced overflow (W 6): streams equal phase 4's, overflow rows "
+          f"fetched {enc.overflow_rows}, {enc.bytes_to_host} bytes to the "
+          f"host, encode {secs:.3f} s")
+
+    width = torch_decoder._download_width
+    torch_decoder._download_width = lambda bps: 6
+    try:
+        dec = TorchDecoder(device="cuda")
+        S.KERNEL_LAUNCHES = 0
+        decoded, secs = timed(lambda: dec.decode_many(datas))
+        launches = S.KERNEL_LAUNCHES
+    finally:
+        torch_decoder._download_width = width
+    require(launches > 0, "the 6-bit download decode launched no kernel")
+    require(dec.flagged_rows > 0, "no row was flagged at a 6-bit download")
+    for sig, out in zip(tracks, decoded):
+        require(lossless(sig, out), "the 6-bit download decode is not "
+                                    "lossless")
+    print(f"forced 6-bit download: lossless, flagged rows {dec.flagged_rows}"
+          f", download chunks {dec.download_chunks}, down {dec.bytes_down} "
+          f"bytes, up {dec.bytes_up} bytes, decode {secs:.3f} s, kernel "
+          f"launches {launches}")
+
+
+def device_time(fn, *args):
+    """(wall ms, device ms, device launches) of one fn(*args) under
+    torch.profiler, the card synchronised after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_us = launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            dev_us += ev.self_device_time_total
+            launches += ev.count
+    return wall_ms, dev_us / 1e3, launches
+
+
+def routes_phase(tracks) -> None:
+    """The matrix-unit routes against the lag/FFT routes on the card: the
+    fit stages of one 64-block batch (CUDA-event span, device time, torch
+    ops), then the plain -e corpus encode in 5 alternating pairs."""
+    preset = PRESETS[PRESET]
+    ridges = preset.ridge_terms
+    blocks = np.stack([tracks[1][:, b * SPB:(b + 1) * SPB]
+                       for b in range(64)])
+    sig = I.normalize_to_float(torch.from_numpy(blocks).cuda(), 16,
+                               torch.float64)
+    sig_r = sig.unsqueeze(0).expand((len(ridges),) + tuple(sig.shape))
+    rv = torch.tensor(ridges, dtype=torch.float64, device="cuda").reshape(
+        len(ridges), 1, 1, 1)
+
+    def fit(x):
+        for order in preset.layer_num_params:
+            _log2u, _flat, x, _loss = A.fit_layer(x, order, rv)
+        return x
+
+    chans = [[t[0], t[1]] for t in tracks]
+    lengths = [t.shape[1] for t in tracks]
+    seconds = sum(lengths) / RATE
+    warm = make_track(2 * SPB / RATE, 96)
+    names = {True: "matmul", False: "lag/FFT"}
+    saved = A._MATMUL_ROUTES_OVERRIDE
+    multiples = {True: [], False: []}
+    sizes = {}
+    try:
+        for route in (True, False):
+            A._MATMUL_ROUTES_OVERRIDE = route
+            fit(sig_r)  # warm: cuFFT plans, cuBLAS handles
+            enc = TorchEncoder(device="cuda")
+            enc.set_encode_parameter(param())
+            enc.encode_many([[warm[0], warm[1]]], [warm.shape[1]])
+            span_ms = cuda_ms(lambda: fit(sig_r), reps=3)
+            wall_ms, dev_ms, dev_launches = device_time(fit, sig_r)
+            ops = count_ops(fit, sig_r)[0]
+            print(f"routes, fit stages of one 64-block batch (preset "
+                  f"{PRESET}, 4 ridges): {names[route]}: CUDA-event span "
+                  f"{span_ms:.2f} ms, profiled wall {wall_ms:.1f} ms, device "
+                  f"{dev_ms:.2f} ms in {dev_launches} launches, {ops} torch "
+                  "ops")
+        for turn in range(5):
+            for route in ((True, False) if turn % 2 == 0 else (False, True)):
+                A._MATMUL_ROUTES_OVERRIDE = route
+                enc = TorchEncoder(device="cuda")
+                enc.set_encode_parameter(param())
+                got, secs = timed(lambda: enc.encode_many(chans, lengths))
+                multiples[route].append(seconds / secs)
+                if route not in sizes:
+                    sizes[route] = sum(len(d) for d in got)
+                    for sig, data in zip(tracks, got):
+                        require(lossless(sig, Decoder().decode_whole(data)),
+                                f"{names[route]} stream is not lossless")
+    finally:
+        A._MATMUL_ROUTES_OVERRIDE = saved
+    med = {r: float(np.median(v)) for r, v in multiples.items()}
+    default = A._use_matmul_routes(torch.zeros(1, device="cuda"))
+    for route in (True, False):
+        print(f"routes, plain -e corpus encode, {names[route]}: multiples "
+              f"{[round(m, 1) for m in multiples[route]]}, median "
+              f"{med[route]:.1f}x realtime, {sizes[route]} bytes (lossless)")
+    print(f"routes: matmul / lag-FFT median ratio "
+          f"{med[True] / med[False]:.3f}; the card's default route is "
+          f"{names[default]}")
 
 
 def main() -> int:
@@ -1180,6 +1396,10 @@ def main() -> int:
     learn_af_phase(tracks, plain_multiple)
     learn_af_dispatch_phase()
     device_list_phase(tracks, datas, exact_refs)
+    packing_phase()
+    copy_phase(tracks)
+    forced_overflow_phase(tracks, datas)
+    routes_phase(tracks)
 
     replaces = {"autocorr_serial": 148, "levinson_serial": 203,
                 "serial_abs_mean": 378, "chain_predict": 349}

@@ -15,11 +15,20 @@ recomputed from the quantized integers, mirroring linne_encoder.c:686-696).
 The float analysis runs in float64 on every device (see ops/__init__.py),
 so on the CPU the bytes equal TpuEncoder's float64 CPU bytes.
 
-Each batch's int32 side tensor and int32 residual plane leave the device
-in one non-blocking copy into pinned host memory; a CUDA event per batch
-tells the drain when it has landed, and PIPELINE_DEPTH batches stay in
-flight. With a device list (`devices=`, parallel/mesh.py) each batch's rows
-split into one shard per entry, each with its own copy and event.
+Each batch leaves the device as one int32 tensor: the side columns (flags,
+the block's residual width, pre-emphasis state, per-layer unit counts and
+shifts, Rice order, then the coefficient and k2 planes byte-packed four to
+a word) followed by the residual plane at W bits per sample
+(ops/bitpack.py), in the reference's layout. It goes in one non-blocking
+copy into pinned host memory; a CUDA event per batch tells the drain when
+it has landed, and PIPELINE_DEPTH batches stay in flight. W adapts per
+block length: each batch is dispatched at the narrowest class of
+_res_width_classes that covers the widest residual of the last drained
+batch of that length. The int32 residual tensor stays on the device until
+its batch is drained; the rare blocks whose residual is wider than W are
+fetched from it at full width. With a device list (`devices=`,
+parallel/mesh.py) each batch's rows split into one shard per entry, each
+with its own copy, event and residual tensor.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from ..ops import analysis as A
 from ..ops import intops as I
 from ..ops import rice_search as R
 from ..ops import training
+from ..ops.bitpack import pack_geometry, pack_plane_words
 from ..parallel.mesh import on_device, pad_rows, resolve_devices, shards
 
 _RAW_THRESHOLD = float(np.float32(0.95))
@@ -69,6 +79,20 @@ _RAW_THRESHOLD = float(np.float32(0.95))
 
 def _roundup(val: int, n: int) -> int:
     return ((val + n - 1) // n) * n
+
+
+def _res_width_classes(bps: int) -> tuple:
+    """Allowed bit widths of the residual plane's copy to the host, widest
+    first. Residuals of compressible material fit well under the sample
+    width, so the plane carries W bits per sample (two's complement); W is
+    picked per batch from these classes (_pick_width), and blocks wider
+    than the dispatched W come as full int32 rows (_drain_batch)."""
+    return (14, 12, 10) if bps <= 16 else (24, 20)
+
+
+def _res_pack_width(bps: int) -> int:
+    """Widest (startup/default) residual-plane class."""
+    return _res_width_classes(bps)[0]
 
 
 class TorchEncoder:
@@ -107,6 +131,13 @@ class TorchEncoder:
         self.preset = None
         self.codebook = None
         self._analyze_cache = {}
+        self._maxw_seen = {}  # block length -> widest residual seen
+        # transfer counters over the encoder's life: the W of every
+        # dispatched batch, the int32 rows fetched past W, and the bytes
+        # copied to the host (packed tensors and fetched rows)
+        self.batch_widths: List[int] = []
+        self.overflow_rows = 0
+        self.bytes_to_host = 0
 
     def set_encode_parameter(self, parameter: EncodeParameter) -> None:
         parameter.validate_against(self.config)
@@ -114,13 +145,16 @@ class TorchEncoder:
         self.preset = PRESETS[parameter.preset]
         self.codebook = get_codebook(self.preset.coef_freq_table)
         self._analyze_cache = {}
+        self._maxw_seen = {}
 
     # -- the per-batch stage chain -----------------------------------------
 
     def _analyze_fn(self, n: int):
         """Build (and cache) the stage chain for block length n. Returns
-        (analyze, num_analyze); analyze maps a [B, C, >=n] int16/int32
-        device tensor to the packed [B, C, side_k + n] int32 result."""
+        (analyze, num_analyze); analyze(blocks, W=None) maps a [B, C, >=n]
+        int16/int32 device tensor to {"packed": [B, C, side_k + words]
+        int32 (the side columns, then the residual plane at W bits),
+        "residual": [B, C, n] int32}, W defaulting to the widest class."""
         fn = self._analyze_cache.get(n)
         if fn is not None:
             return fn
@@ -194,7 +228,7 @@ class TorchEncoder:
             train = None
 
         def finish_stage(raw_flag, silent_flag, pprev, pcoef, buf, log2u,
-                         params):
+                         params, W):
             int_coefs = []
             rshifts = []
             for li in range(len(orders)):
@@ -207,22 +241,36 @@ class TorchEncoder:
                 x = I.predict_cascade_layer(x, int_coefs[li], log2u[li],
                                             rshifts[li], unit_choices[li])
             porder, k2s = R.rice_search(x, dtype)
+            # minimal two's-complement width of the block's residuals: x
+            # fits w iff -2^(w-1) <= x < 2^(w-1); the exponent of frexp is
+            # the bit length of m (exact: m < 2^31 is a float64 integer)
+            flat = x.flatten(1)
+            m = torch.maximum(flat.amax(dim=-1).long(),
+                              -flat.amin(dim=-1).long() - 1)
+            res_maxw = torch.frexp(m.to(torch.float64))[1] + 1
             B, C = x.shape[0], x.shape[1]
 
             def bc1(v):  # [B] -> [B, C, 1]
                 return v.to(torch.int32)[:, None, None].expand(B, C, 1)
 
-            parts = [bc1(raw_flag), bc1(silent_flag), pprev, pcoef]
+            parts = [bc1(raw_flag), bc1(silent_flag), bc1(res_maxw),
+                     pprev, pcoef]
             for li in range(len(orders)):
                 parts.append(log2u[li].unsqueeze(-1))
                 parts.append(rshifts[li].unsqueeze(-1))
             parts.append(porder.unsqueeze(-1))
-            parts.extend(int_coefs)
-            parts.append(k2s)
-            parts.append(x)
-            return torch.cat([t.to(torch.int32) for t in parts], dim=-1)
+            # the coefficient and k2 planes hold bytes: the 8-bit plane
+            # packing puts four to a word, little-endian
+            parts.append(pack_plane_words(torch.cat(
+                [c.to(torch.int32) for c in int_coefs], dim=-1), 8))
+            parts.append(pack_plane_words(k2s.to(torch.int32), 8))
+            parts.append(pack_plane_words(x, W))
+            packed = torch.cat([t.to(torch.int32) for t in parts], dim=-1)
+            return {"packed": packed, "residual": x}
 
-        def analyze(blocks):
+        def analyze(blocks, W=None):
+            if W is None:
+                W = _res_pack_width(bps)
             raw_flag, silent_flag, pprev, pcoef, buf, sig_r = pre_stage(blocks)
             log2u_r = []
             params_r = []
@@ -245,24 +293,39 @@ class TorchEncoder:
                 # they stop after two iterations) change no real row
                 params, _iterations = train(sig_r[0], params, log2u)
             return finish_stage(raw_flag, silent_flag, pprev, pcoef, buf,
-                                log2u, params)
+                                log2u, params, W)
 
         self._analyze_cache[n] = (analyze, num_analyze)
         return self._analyze_cache[n]
 
     def _side_layout(self, n: int):
-        """Offsets into the packed result (see finish_stage): flags,
-        pre-emphasis state, per-layer (log2u, rshift), porder, the
-        coefficient plane, the k2 plane, then the residual plane."""
+        """Offsets into the packed result (see finish_stage): [raw, silent,
+        residual width] flags, pre-emphasis state, per-layer (log2u,
+        rshift), porder, the byte-packed coefficient and k2 planes; the
+        residual plane follows at side_k."""
         L = self.preset.num_layers
         total_order = sum(self.preset.layer_num_params)
         max_parts = 1 << R.max_porder_for(n)
-        off_layers = 2 + 2 * NUM_PREEMPH_FILTERS
+        off_layers = 3 + 2 * NUM_PREEMPH_FILTERS
         off_porder = off_layers + 2 * L
-        off_coef = off_porder + 1
-        off_k2 = off_coef + total_order
-        side_k = off_k2 + max_parts
-        return off_layers, off_porder, off_coef, off_k2, side_k
+        off_coefw = off_porder + 1
+        off_k2w = off_coefw + (total_order + 3) // 4
+        side_k = off_k2w + (max_parts + 3) // 4
+        return off_layers, off_porder, off_coefw, off_k2w, side_k, max_parts
+
+    def _pick_width(self, n: int) -> int:
+        """Residual-plane width class for the next dispatch of length n:
+        the narrowest class covering the widest residual that the last
+        drained batch of this length produced (a misprediction costs an
+        int32 row fetch, never a byte of the stream)."""
+        classes = _res_width_classes(self.parameter.bits_per_sample)
+        seen = self._maxw_seen.get(n)
+        if seen is None:
+            return classes[0]
+        for w in reversed(classes):  # narrowest first
+            if w >= seen:
+                return w
+        return classes[0]
 
     # -- serialization ------------------------------------------------------
 
@@ -423,10 +486,12 @@ class TorchEncoder:
 
     def _dispatch_batch(self, blocks: np.ndarray, n: int,
                         real: Optional[int] = None):
-        """Launch the stages on one [B, C, >=n] batch and start the copy of
-        the packed result to the host. Returns the item _drain_batch
-        takes."""
+        """Launch the stages on one [B, C, >=n] batch at the residual
+        width _pick_width chooses and start the copy of the packed result
+        to the host. Returns the item _drain_batch takes."""
         fn, num_analyze = self._analyze_fn(n)
+        W = self._pick_width(n)
+        self.batch_widths.append(W)
         width = max(n, num_analyze)
         if blocks.shape[-1] < width:
             pad = np.zeros(blocks.shape[:-1] + (width - blocks.shape[-1],),
@@ -444,7 +509,8 @@ class TorchEncoder:
         outs = []
         for d, a, b in shards(self.devices, up.shape[0]):
             with on_device(d):
-                packed = fn(torch.from_numpy(up[a:b]).to(d))
+                out = fn(torch.from_numpy(up[a:b]).to(d), W)
+                packed = out["packed"]
                 if d.type == "cuda":
                     host = torch.empty(packed.shape, dtype=torch.int32,
                                        pin_memory=True)
@@ -453,8 +519,9 @@ class TorchEncoder:
                     ready.record(torch.cuda.current_stream(d))
                 else:
                     host, ready = packed, None
-            outs.append((host, ready))
-        return (outs, blocks, n, real)
+            # the residual stays on the device for the overflow fetch
+            outs.append((host, ready, out["residual"], a))
+        return (outs, blocks, n, real, W)
 
     def _encode_batch(self, blocks: np.ndarray, n: int) -> bytes:
         """blocks: [B, C, >=n] int32; returns framed block bytes."""
@@ -555,30 +622,95 @@ class TorchEncoder:
                     for b in sorted(per_track_blocks[ti]))
                 for ti, ns in enumerate(track_lengths)]
 
-    def _drain_batch(self, out, blocks: np.ndarray, n: int,
-                     real: int) -> List[bytes]:
+    @staticmethod
+    def _unpack_bytes(words: np.ndarray, count: int,
+                      signed: bool) -> np.ndarray:
+        """[..., K] int32 words -> [..., count] int32 byte values."""
+        w = np.ascontiguousarray(words).view(np.uint8)
+        w = w.reshape(words.shape[:-1] + (-1,))[..., :count]
+        if signed:
+            return w.view(np.int8).astype(np.int32)
+        return w.astype(np.int32)
+
+    @staticmethod
+    def _unpack_res(words: np.ndarray, width: int) -> np.ndarray:
+        """[..., ceil(n/g)*wpg] int32 words -> [..., >=n] int32 samples:
+        the numpy inverse of ops/bitpack.py:pack_plane_words (the native
+        library's unpack_bits is the fast one)."""
+        g, wpg = pack_geometry(width)
+        w = np.ascontiguousarray(words).view(np.uint32)
+        w = w.reshape(words.shape[:-1] + (-1, wpg))
+        out = np.empty(w.shape[:-1] + (g,), np.uint32)
+        for j in range(g):
+            k, off = divmod(j * width, 32)
+            v = w[..., k] >> np.uint32(off)
+            if off + width > 32:
+                v = v | (w[..., k + 1] << np.uint32(32 - off))
+            out[..., j] = v
+        out &= (1 << width) - 1
+        res = out.reshape(words.shape[:-1] + (-1,)).astype(np.int32)
+        sign = 1 << (width - 1)
+        return (res ^ sign) - sign
+
+    def _drain_batch(self, out, blocks: np.ndarray, n: int, real: int,
+                     W: int) -> List[bytes]:
         """Wait for one dispatched batch's packed shards to reach the host
-        and frame its first `real` blocks."""
-        for _host, ready in out:
+        and frame its first `real` blocks. Blocks whose residual is wider
+        than W take their int32 rows from the shard that holds them; raw
+        and silent blocks read no residual."""
+        for _host, ready, _res, _a in out:
             if ready is not None:
                 ready.synchronize()
-        parts = [host.numpy() for host, _ready in out]
+        parts = [host.numpy() for host, _ready, _res, _a in out]
         packed = (parts[0] if len(parts) == 1
-                  else np.concatenate(parts))      # [B, C, side_k + n]
+                  else np.concatenate(parts))  # [B, C, side_k + words]
+        self.bytes_to_host += packed.nbytes
         p = self.parameter
         L = self.preset.num_layers
-        off_layers, off_porder, off_coef, off_k2, side_k = (
-            self._side_layout(n))
-        raw = packed[:, 0, 0] != 0
-        silent = packed[:, 0, 1] != 0
-        pprev = packed[..., 2 : 2 + NUM_PREEMPH_FILTERS]
-        pcoef = packed[..., 2 + NUM_PREEMPH_FILTERS : off_layers]
-        log2u = packed[..., off_layers : off_porder : 2]
-        rshift = packed[..., off_layers + 1 : off_porder : 2]
-        porder = packed[..., off_porder]
-        coefs = packed[..., off_coef:off_k2]
-        k2s = packed[..., off_k2:side_k]
-        res = packed[..., side_k : side_k + n]
+        total_order = sum(self.preset.layer_num_params)
+        (off_layers, off_porder, off_coefw, off_k2w, side_k,
+         max_parts) = self._side_layout(n)
+        side = packed[..., :side_k]
+        words = packed[..., side_k:]
+        raw = side[:, 0, 0] != 0
+        silent = side[:, 0, 1] != 0
+        maxw = side[:, 0, 2]
+        # feed the width choice of the next batch of this length from the
+        # blocks that carry residuals
+        live = ~raw[:real] & ~silent[:real]
+        if live.any():
+            self._maxw_seen[n] = int(maxw[:real][live].max())
+        over = np.nonzero((maxw[:real] > W) & live)[0]
+        full = {}  # block -> its int32 residual rows, fetched past W
+        for _host, _ready, residual, a in out:
+            mine = over[(over >= a) & (over < a + residual.shape[0])]
+            if mine.size:
+                idx = torch.from_numpy(mine - a).to(residual.device)
+                rows = residual.index_select(0, idx).cpu().numpy()
+                full.update(zip(mine.tolist(), rows))
+                self.overflow_rows += int(mine.size)
+                self.bytes_to_host += rows.nbytes
+
+        def residual_of(b: int) -> np.ndarray:
+            """Block b's [C, n] residual: unpacked from the W-bit plane on
+            the packing thread (the native unpack runs without the GIL),
+            or its fetched int32 rows."""
+            if b in full:
+                return full[b][:, :n]
+            if native.available():
+                g, _ = pack_geometry(W)
+                return native.unpack_bits(words[b], W, _roundup(n, g))[:, :n]
+            return self._unpack_res(words[b], W)[:, :n]
+
+        pprev = side[..., 3 : 3 + NUM_PREEMPH_FILTERS]
+        pcoef = side[..., 3 + NUM_PREEMPH_FILTERS : off_layers]
+        log2u = side[..., off_layers : off_porder : 2]
+        rshift = side[..., off_layers + 1 : off_porder : 2]
+        porder = side[..., off_porder]
+        coefs = self._unpack_bytes(side[..., off_coefw:off_k2w], total_order,
+                                   signed=True)
+        k2s = self._unpack_bytes(side[..., off_k2w:side_k], max_parts,
+                                 signed=False)
 
         def pack_one(b: int) -> bytes:
             if raw[b]:
@@ -592,7 +724,7 @@ class TorchEncoder:
             else:
                 payload = self._write_compress_payload(
                     pprev[b], pcoef[b], log2u[b], rshift[b], coefs[b],
-                    porder[b], k2s[b], res[b])
+                    porder[b], k2s[b], residual_of(b))
                 btype = BLOCK_TYPE_COMPRESS
             return frame_block(btype, n, payload)
 

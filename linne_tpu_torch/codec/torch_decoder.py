@@ -15,6 +15,15 @@ device list (`devices=`, parallel/mesh.py) each block-length group's
 blocks split into contiguous shards, one per entry, and each shard runs
 the layer loop on its own device. For single-block latency use
 codec.decoder.
+
+Transfers are slim both ways. Up: each shard's residual rows as int16,
+the rare rows that do not fit patched in at int32 by one index_copy_. Down:
+per row an overflow flag, then the reconstruction at W = bps + 2 bits
+(_download_width, ops/bitpack.py), which holds every row of a valid
+stream; a flagged row is fetched again at int32 from the shard that holds
+it. Pools larger than 2 x _DL_CHUNK_ROWS rows come down in row chunks, each
+its own non-blocking copy into pinned memory behind a CUDA event, so the
+host unpacks chunk k while the later chunks land.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import native
+from .encoder import TorchEncoder
 from .params import DecoderConfig
 from ..constants import (
     BLOCK_TYPE_RAW,
@@ -43,8 +53,51 @@ from ..format.header import FormatError, LinneHeader, check_stream_capacity
 from ..format.huffman import get_codebook
 from ..presets import PRESETS
 
+from ..ops.bitpack import pack_geometry, pack_plane_words
 from ..ops.synthesis import synthesize_rows
 from ..parallel.mesh import on_device, resolve_devices, shards
+
+# Rows per chunk of the streamed reconstruction download.
+_DL_CHUNK_ROWS = 128
+
+
+def _download_width(bps: int) -> int:
+    """Reconstruction samples of a valid stream are bounded by bps+1 bits
+    (before de-emphasis, MS side channel): the download packs at bps+2;
+    any row a hostile stream pushes past that is flagged on the device and
+    fetched again at full width."""
+    return min(bps + 2, 30)
+
+
+def _pack_download(R: torch.Tensor, W: int) -> torch.Tensor:
+    """[rows, n] int32 -> [rows, 1 + words]: the row's overflow flag (a
+    sample outside W bits) in column 0, then the W-bit plane."""
+    lim = 1 << (W - 1)
+    flags = torch.any((R >= lim) | (R < -lim), dim=-1)
+    return torch.cat([flags.to(torch.int32)[:, None],
+                      pack_plane_words(R, W)], dim=-1)
+
+
+def _start_download(packed: torch.Tensor) -> list:
+    """Start the copy of a packed [rows, K] tensor to the host: one chunk,
+    or chunks of _DL_CHUNK_ROWS rows for more than 2 x _DL_CHUNK_ROWS, each
+    a non-blocking copy into pinned memory with the event that tells when
+    it has landed (None on the CPU). Returns [(first row, host, event)]."""
+    rows = packed.shape[0]
+    step = _DL_CHUNK_ROWS if rows > 2 * _DL_CHUNK_ROWS else max(rows, 1)
+    chunks = []
+    for start in range(0, rows, step):
+        part = packed[start : start + step]
+        if part.is_cuda:
+            host = torch.empty(part.shape, dtype=torch.int32,
+                               pin_memory=True)
+            host.copy_(part, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(part.device))
+        else:
+            host, ready = part, None
+        chunks.append((start, host, ready))
+    return chunks
 
 
 class TorchDecoder:
@@ -59,6 +112,13 @@ class TorchDecoder:
         self.devices = resolve_devices(device, devices)
         self.config = config or DecoderConfig()
         self.header = None
+        # transfer counters over the decoder's life: bytes uploaded and
+        # downloaded (packed planes, flags and refetched rows), download
+        # chunks, and rows flagged past the download width
+        self.bytes_up = 0
+        self.bytes_down = 0
+        self.download_chunks = 0
+        self.flagged_rows = 0
 
     # -- host entropy stage --------------------------------------------------
 
@@ -150,14 +210,16 @@ class TorchDecoder:
         """Run the reversed layer cascade for every compress block of every
         stream in `streams` = [(si, header, orders, blocks)], with all rows
         pooled into shared launches. All streams must share the same preset
-        (orders) and channel count. Returns one entry per block length:
-        (n, host_R [rows, n], members [(si, block_idx)]), where block
-        (si, i) at position pos owns the nch consecutive rows starting at
-        pos * nch."""
+        (orders), channel count and sample width. Returns one entry per
+        block length: (n, host_R [rows, >=n], members [(si, block_idx)]),
+        where block (si, i) at position pos owns the nch consecutive rows
+        starting at pos * nch."""
         if not streams:
             return []
         orders = streams[0][2]
         nch = streams[0][1].num_channels
+        W = _download_width(streams[0][1].bits_per_sample)
+        g, _wpg = pack_geometry(W)
         by_key = {}
         by_len = {}
         for si, _header, _orders, blocks in streams:
@@ -167,25 +229,69 @@ class TorchDecoder:
                     by_len.setdefault(n, []).append((si, i))
         out_groups = []
         for n, members_n in by_len.items():
-            # every shard is enqueued before any is read back
+            # every shard's cascade and download are enqueued before any
+            # is read back
+            spans = shards(self.devices, len(members_n))
             shard_R = [self._synthesize_shard(d, members_n[a:b], by_key, n,
                                               orders, nch)
-                       for d, a, b in shards(self.devices, len(members_n))]
-            host = [R.cpu().numpy() for R in shard_R]
-            out_groups.append((n, host[0] if len(host) == 1
-                               else np.concatenate(host), members_n))
+                       for d, a, b in spans]
+            downs = []
+            for R in shard_R:
+                with on_device(R.device):
+                    downs.append(_start_download(_pack_download(R, W)))
+            host_R = np.empty((len(members_n) * nch, -(-n // g) * g),
+                              np.int32)
+            for (_d, a, b), R, chunks in zip(spans, shard_R, downs):
+                self._download(R, chunks, W, n, host_R[a * nch : b * nch])
+            out_groups.append((n, host_R, members_n))
         return out_groups
 
-    @staticmethod
-    def _synthesize_shard(device, members, by_key, n, orders, nch
+    def _download(self, R, chunks, W, n, out) -> None:
+        """Unpack one shard's downloaded chunks (see _start_download) into
+        out [rows, >=n], each as soon as it has landed, while the later
+        ones are still copying; rows flagged past W take their int32
+        values from the shard's R."""
+        flags = np.empty(out.shape[0], np.int32)
+        for start, part, ready in chunks:
+            if ready is not None:
+                ready.synchronize()
+            words = part.numpy()
+            stop = start + words.shape[0]
+            flags[start:stop] = words[:, 0]
+            self.bytes_down += words.nbytes
+            if native.available():
+                native.unpack_bits(words[:, 1:], W, out.shape[1],
+                                   out[start:stop])
+            else:
+                out[start:stop] = TorchEncoder._unpack_res(words[:, 1:], W)
+        self.download_chunks += len(chunks)
+        wide = np.nonzero(flags)[0]
+        if wide.size:
+            idx = torch.from_numpy(wide).to(R.device)
+            full = R.index_select(0, idx).cpu().numpy()
+            out[wide, :n] = full
+            self.flagged_rows += int(wide.size)
+            self.bytes_down += full.nbytes
+
+    def _synthesize_shard(self, device, members, by_key, n, orders, nch
                           ) -> torch.Tensor:
         """The reversed layer cascade of one contiguous shard of a
-        block-length group's compress blocks, on `device`. Returns R [rows,
-        n] int32 there, where block `members[pos]` owns the nch rows from
-        pos * nch."""
+        block-length group's compress blocks, on `device`. The residual
+        rows go up as int16, the rows that do not fit patched in at int32.
+        Returns R [rows, n] int32 there, where block `members[pos]` owns
+        the nch rows from pos * nch."""
         stacked = np.concatenate([by_key[m][0] for m in members])
+        wide = np.nonzero((stacked.max(axis=1) > 32767)
+                          | (stacked.min(axis=1) < -32768))[0]
+        up16 = torch.from_numpy(stacked.astype(np.int16))
+        self.bytes_up += up16.numel() * 2
         with on_device(device):
-            R = torch.from_numpy(stacked).to(device)  # [rows, n] int32
+            R = up16.to(device).to(torch.int32)  # [rows, n]
+            if wide.size:
+                full = torch.from_numpy(stacked[wide])
+                R.index_copy_(0, torch.from_numpy(wide).to(device),
+                              full.to(device))
+                self.bytes_up += full.numel() * 4 + wide.size * 8
             for li in range(len(orders) - 1, -1, -1):
                 base_off = int(orders[:li].sum())
                 order = int(orders[li])
@@ -290,7 +396,10 @@ class TorchDecoder:
             parsed = [self._parse_stream(d) for d in datas]
         classes = {}
         for si, (header, _orders, _blocks) in enumerate(parsed):
-            key = (header.preset, header.num_channels)
+            # the sample width sets the download width, so it is part of
+            # the pooling key
+            key = (header.preset, header.num_channels,
+                   header.bits_per_sample)
             classes.setdefault(key, []).append(si)
         results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
         for sis in classes.values():

@@ -15,6 +15,7 @@ import pathlib
 import subprocess
 import sys
 import threading
+from typing import Optional
 
 import numpy as np
 
@@ -360,15 +361,23 @@ class StreamCrcError(StreamDecodeError):
     pass
 
 
-def unpack_bits(words: np.ndarray, width: int, n: int) -> np.ndarray:
+def unpack_bits(words: np.ndarray, width: int, n: int,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
     """[..., words_per_row] int32/uint32 words -> [..., n] int32 samples
-    (W-bit two's complement, little-endian bit order within words)."""
+    (W-bit two's complement, little-endian bit order within words), into
+    `out` when given (a C-contiguous int32 array of that shape)."""
     lead = words.shape[:-1]
     wpr = words.shape[-1]
     w = np.ascontiguousarray(words).view(np.uint32).reshape(-1, wpr)
-    out = np.empty((w.shape[0], n), dtype=np.int32)
-    lib().linne_unpack_bits(w, w.shape[0], wpr, width, n, out)
-    return out.reshape(lead + (n,))
+    if out is None:
+        out = np.empty(lead + (n,), dtype=np.int32)
+    elif (out.shape != lead + (n,) or out.dtype != np.int32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"unpack_bits: out must be a C-contiguous int32 "
+                         f"array of shape {lead + (n,)}")
+    lib().linne_unpack_bits(w, w.shape[0], wpr, width, n,
+                            out.reshape(w.shape[0], n))
+    return out
 
 
 def deemphasis(data: np.ndarray, prevs: np.ndarray, coefs: np.ndarray) -> None:

@@ -8,10 +8,15 @@ dimension of one tensor computation over [ridges, blocks, channels, ...].
 The recursions over taps or orders (`lax.scan` in the reference) are Python
 loops of batched tensor ops.
 
-Routes: the reference's CPU routes, on both devices — a lag scan below 32
-lags and an FFT at 32 and above (torch.fft in place of jnp.fft). The TPU's
-matrix-unit routes (`_autocorr_matmul`, `_unit_forward_matmul`) are not
-ported.
+Routes, as in the reference: a lag scan (one pass over the signal per lag
+or tap) for few lags, an FFT (torch.fft) at 32 and above, and the
+matrix-unit routes (`_autocorr_matmul`, `_unit_forward_matmul`: one batched
+float64 product each, on the H100's FP64 tensor cores) from 9 lags / 8 taps
+up, under a bound on what they materialize. The reference takes the
+matrix-unit routes where a matrix unit exists and keeps the lag/FFT routes
+on the CPU; `_use_matmul_routes` says which here. The routes compute the
+same quantity; only float rounding differs, which can shift a chosen
+coefficient, never losslessness.
 
 Winners are picked with first-minimum semantics, as the reference's
 strict-< selection: a running `loss < best` fold over unit candidates and
@@ -32,18 +37,73 @@ from .windows import WINDOW_SIN, WINDOW_WELCH, window_weights
 
 _FFT_AUTOCORR_MIN_LAGS = 32
 
+_MATMUL_ROUTES_OVERRIDE = None  # tests force True/False
+
+_CHUNK = 128  # the products' chunk; also bounds the max lag G covers
+
+# The matmul routes materialize O(rows * K * (K + lags)) intermediates;
+# above this bound the scan routes are taken. The reference's formula
+# (4 bytes an element) is kept as it is, so that under the override the
+# port takes the reference's route at every shape.
+_MATMUL_BYTES_BUDGET = 420 * 1024 * 1024
+
+
+def _use_matmul_routes(t: torch.Tensor) -> bool:
+    """The override when set, else whether `t` lies on a card: the
+    reference's rule (the matrix-unit routes where a matrix unit exists,
+    the CPU keeps the lag/FFT routes), with the H100's FP64 tensor cores
+    as the matrix unit."""
+    if _MATMUL_ROUTES_OVERRIDE is not None:
+        return _MATMUL_ROUTES_OVERRIDE
+    return t.is_cuda
+
+
+def _rows(t: torch.Tensor) -> int:
+    rows = 1
+    for d in t.shape[:-1]:
+        rows *= int(d)
+    return rows
+
 
 def _window(window_type: int, n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(window_weights(window_type, n), dtype=like.dtype,
                            device=like.device)
 
 
+def _autocorr_matmul(x: torch.Tensor, num_lags: int) -> torch.Tensor:
+    """Autocorrelation as one batched product: the signal in K=128-sample
+    chunks Zl [m, K] and their (num_lags-1)-extended contexts Zr
+    [m, K+L-1]; G = Zl^T @ Zr holds every (position-in-chunk, offset)
+    product, and ac[lag] is the lag-th diagonal sum of G."""
+    n = x.shape[-1]
+    K = _CHUNK
+    L = num_lags
+    assert L - 1 <= K
+    batch_shape = tuple(x.shape[:-1])
+    m = -(-n // K)
+    w = K + L - 1
+    # pad for the widest context read: last chunk start (m-1)*K + w
+    xp = F.pad(x.reshape(-1, n), (0, m * K + L - 1 - n))
+    zl = xp[:, : m * K].reshape(-1, m, K)
+    zr = xp.unfold(-1, w, K)  # [rows, m, w]: chunk i's context
+    g = torch.einsum("rmk,rmw->rkw", zl, zr).contiguous()
+    # diagonal l of G: G[k, k + l], read through strides (w + 1, 1)
+    diag = g.as_strided((g.shape[0], K, L), (K * w, w + 1, 1))
+    ac = torch.sum(diag, dim=1)  # [rows, L]
+    return ac.reshape(batch_shape + (L,)).to(x.dtype)
+
+
 def autocorrelation(x: torch.Tensor, num_lags: int) -> torch.Tensor:
     """Batched autocorrelation over the last axis: ac[..., lag] =
     sum_t x[t] * x[t+lag] for lag in [0, num_lags). A lag scan (one pass
     over the signal per lag) for few lags, the Wiener-Khinchin FFT route
-    for many."""
+    for many, and on a matrix unit the chunked G-matrix product from 9
+    lags (npu >= 8) while its G tensor stays within _MATMUL_BYTES_BUDGET."""
     n = x.shape[-1]
+    if 9 <= num_lags <= _CHUNK + 1 and _use_matmul_routes(x):
+        g_bytes = _rows(x) * _CHUNK * (_CHUNK + num_lags - 1) * 4
+        if g_bytes <= _MATMUL_BYTES_BUDGET:
+            return _autocorr_matmul(x, num_lags)
     if num_lags >= _FFT_AUTOCORR_MIN_LAGS:
         fft_n = 1
         while fft_n < n + num_lags:
@@ -141,6 +201,11 @@ def unit_forward(
     n = signal.shape[-1]
     npu = params.shape[-1]
     ns = n // num_units
+    if npu >= 8 and _use_matmul_routes(signal):
+        w = _CHUNK + npu - 1
+        hmat_bytes = _rows(signal) * num_units * w * _CHUNK * 4
+        if hmat_bytes <= _MATMUL_BYTES_BUDGET:
+            return _unit_forward_matmul(signal, params, num_units)
     if npu >= _FFT_AUTOCORR_MIN_LAGS:
         return _unit_forward_fft(signal, params, num_units)
     xp = F.pad(signal, (npu, 0))
@@ -177,6 +242,42 @@ def _unit_forward_fft(signal: torch.Tensor, params: torch.Tensor,
         torch.fft.rfft(flat_p, dim=-1))
     corr = torch.fft.irfft(spec, n=fft_n, dim=-1)[:, :ns]
     pred = corr.reshape(batch_shape + (n,)).to(signal.dtype)
+    out = signal + pred
+    return torch.cat([signal[..., :1], out[..., 1:]], dim=-1)
+
+
+def _unit_forward_matmul(signal: torch.Tensor, params: torch.Tensor,
+                         num_units: int) -> torch.Tensor:
+    """unit_forward as one batched product: each unit's left-context-
+    extended segment in K-output windows Xc [m, K+npu-1], times a per-row
+    Toeplitz expansion of the filter H [K+npu-1, K] (H[w, r] = h[w-r]);
+    the prediction chunks are Xc @ H."""
+    n = signal.shape[-1]
+    npu = params.shape[-1]
+    ns = n // num_units
+    batch_shape = tuple(signal.shape[:-1])
+    K = _CHUNK
+    m = -(-ns // K)
+    w = K + npu - 1
+    seg_len = ns + npu
+    # ctx[u, t] = x[u*ns - npu + t], zero history before t=0 (the FFT
+    # route's layout); padded so the last chunk's window stays in bounds
+    xp = F.pad(signal, (npu, 0))
+    ctx = xp.unfold(-1, seg_len, ns)  # [..., u, seg_len]
+    pad_tail = (m - 1) * K + w - seg_len
+    if pad_tail > 0:
+        ctx = F.pad(ctx, (0, pad_tail))
+    xc = ctx.unfold(-1, w, K)  # [..., u, m, w]
+    # H[w_, r] = h[w_ - r] for 0 <= w_ - r < npu else 0: with hz the
+    # filter between K-1 zeros on each side, window s of hz is hz[s + r'],
+    # so H is those w windows with r' = K-1-r reversed (the reference
+    # gathers the same values; windows keep the training's backward a
+    # fold instead of an indexed scatter)
+    hz = F.pad(params.expand(batch_shape + (num_units, npu)), (K - 1, K - 1))
+    hmat = hz.unfold(-1, K, 1).flip(-1)  # [..., u, w, K]
+    pred = torch.einsum("...umw,...uwk->...umk", xc, hmat)
+    pred = pred.reshape(batch_shape + (num_units, m * K))[..., :ns]
+    pred = pred.reshape(batch_shape + (num_units * ns,)).to(signal.dtype)
     out = signal + pred
     return torch.cat([signal[..., :1], out[..., 1:]], dim=-1)
 

@@ -105,13 +105,14 @@ def shard_blocks(mesh: Sequence[torch.device], blocks) -> List[torch.Tensor]:
 def sharded_analyze(encoder, mesh: Sequence[torch.device], blocks,
                     n: int) -> torch.Tensor:
     """Run the encoder's batched stage chain data-parallel over the mesh:
-    each row shard on its device, the packed results joined in row order on
-    the host. Equal, bit for bit, to the unsharded call."""
+    each row shard on its device, the packed results (at the widest
+    residual class) joined in row order on the host. Equal, bit for bit,
+    to the unsharded call's "packed"."""
     fn, _ = encoder._analyze_fn(n)
     outs = []
     for shard in shard_blocks(mesh, blocks):
         with on_device(shard.device):
-            outs.append(fn(shard))
+            outs.append(fn(shard)["packed"])
     return torch.cat([o.cpu() for o in outs])
 
 

@@ -1,8 +1,13 @@
 """The port on a CUDA card: the synthesis kernel and the byte-exact
 encoder's serial float64 kernels against their plain torch versions, the
 encoder and decoder on the card against the CPU, the byte-exact device
-encoder on the card against the host oracle, and the device-list split of
-the encoders and the decoder against one card.
+encoder on the card against the host oracle, the device-list split of
+the encoders and the decoder against one card, and the slim transfers and
+the matrix-unit analysis routes on the card against the CPU.
+
+Where a test holds the card to the CPU port at a tight tolerance, both
+take the same analysis route (`routes`): by default the card takes the
+matrix-unit routes where the CPU keeps the lag/FFT routes.
 
 Every test skips without a card. The file imports no jax, so it also runs
 on a machine without it:
@@ -20,6 +25,7 @@ from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.exact.device_encoder import DeviceExactEncoder
 from linne_tpu_torch.exact.encoder import ExactEncoder
+from linne_tpu_torch.ops import analysis as A
 from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import synthesis as S
 
@@ -29,6 +35,14 @@ pytestmark = pytest.mark.cuda
 def _require_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.fixture(params=[False, True], ids=["lag-fft", "matmul"])
+def routes(request, monkeypatch):
+    """The analysis route both devices take: the lag/FFT routes or the
+    matrix-unit routes."""
+    monkeypatch.setattr(A, "_MATMUL_ROUTES_OVERRIDE", request.param)
+    return request.param
 
 
 def _synth_inputs(rows, ns, npu):
@@ -81,9 +95,10 @@ def _track(n, seed):
 
 
 @pytest.mark.parametrize("preset", [0, 7])
-def test_card_round_trip_matches_cpu(preset):
-    """Card encode bytes equal the CPU port's (both analyze in float64);
-    the card decode launches the kernel and equals the host Decoder."""
+def test_card_round_trip_matches_cpu(preset, routes):
+    """Card encode bytes equal the CPU port's (both analyze in float64, on
+    the same route); the card decode launches the kernel and equals the
+    host Decoder."""
     _require_card()
     spb = 2048
     sigs = [_track(3 * spb + 300, preset), _track(2 * spb, preset + 1)]
@@ -232,7 +247,7 @@ def test_af_refine_on_card_matches_cpu():
     assert not card[2].any() and not cpu[2].any()
 
 
-def test_train_fn_on_card_matches_cpu():
+def test_train_fn_on_card_matches_cpu(routes):
     from linne_tpu_torch.constants import (
         TRAINING_LEARNING_RATE,
         TRAINING_LOSS_EPSILON,
@@ -383,11 +398,12 @@ def test_encoder_device_list_on_card(devices):
 
 
 @pytest.mark.parametrize("devices", _DEVICE_LISTS)
-def test_mesh_helpers_on_card(devices):
-    """sharded_analyze over the list equals the one-card call bit for bit;
-    one sharded train step matches the same split on the CPU (each shard's
-    loss is its own mean, so the split sets the gradient's scale; cuFFT
-    and the CPU's FFT round differently in the last bits)."""
+def test_mesh_helpers_on_card(devices, routes):
+    """sharded_analyze over the list equals the one-card call bit for bit
+    (a CPU entry takes the card's route); one sharded train step matches
+    the same split on the CPU (each shard's loss is its own mean, so the
+    split sets the gradient's scale; the card's FFT and products round
+    differently from the CPU's in the last bits)."""
     from linne_tpu_torch.parallel import mesh
 
     _require_card()
@@ -399,8 +415,9 @@ def test_mesh_helpers_on_card(devices):
     enc.set_encode_parameter(EncodeParameter(
         num_channels=2, bits_per_sample=16, sampling_rate=44100,
         num_samples_per_block=spb, preset=7, ch_process_method=1))
-    one = enc._analyze_fn(spb)[0](torch.from_numpy(blocks).cuda()).cpu()
-    assert torch.equal(mesh.sharded_analyze(enc, devices, blocks, spb), one)
+    one = enc._analyze_fn(spb)[0](torch.from_numpy(blocks).cuda())
+    assert torch.equal(mesh.sharded_analyze(enc, devices, blocks, spb),
+                       one["packed"].cpu())
 
     orders, n = (2, 32), 512
     rows = 2 * len(devices)
@@ -419,3 +436,86 @@ def test_mesh_helpers_on_card(devices):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
                                    atol=1e-15)
     assert abs(float(out["split"][2]) - float(out["cpu"][2])) <= 1e-12
+
+
+# -- the slim transfers and the matrix-unit routes -----------------------------
+
+
+@pytest.mark.parametrize("width", [1, 6, 8, 10, 12, 14, 18, 20, 24, 30, 31])
+def test_pack_plane_words_card_equals_cpu(width):
+    """Bit for bit, on random int32 rows with both extremes and a ragged
+    length; native.unpack_bits inverts the card's words."""
+    from linne_tpu_torch import native
+    from linne_tpu_torch.ops.bitpack import pack_geometry, pack_plane_words
+
+    _require_card()
+    rng = np.random.default_rng(width)
+    x = rng.integers(-2**31, 2**31, (5, 2, 1027), dtype=np.int64)
+    x = x.astype(np.int32)
+    x[0, 0, 0], x[0, 1, -1] = -2**31, 2**31 - 1
+    card = pack_plane_words(torch.from_numpy(x).cuda(), width).cpu()
+    assert torch.equal(card, pack_plane_words(torch.from_numpy(x), width))
+    g, _ = pack_geometry(width)
+    sign = 1 << (width - 1)
+    low = ((x.astype(np.int64) & ((1 << width) - 1)) ^ sign) - sign
+    back = native.unpack_bits(card.numpy(), width, -(-1027 // g) * g)
+    assert np.array_equal(back[..., :1027], low)
+
+
+def test_forced_overflow_round_trip_on_card(monkeypatch):
+    """A 6-bit residual class and a 6-bit download on the card: every live
+    block and row takes its int32 fetch, the bytes equal the card's
+    default encode's, and the decode is lossless."""
+    from linne_tpu_torch.codec import encoder as E
+    from linne_tpu_torch.codec import torch_decoder as TD
+
+    _require_card()
+    sigs, param = _streams(7)
+    chans = [[s[0], s[1]] for s in sigs]
+    lengths = [s.shape[1] for s in sigs]
+    enc = TorchEncoder(batch_blocks=4, device="cuda")
+    enc.set_encode_parameter(param)
+    plain = enc.encode_many(chans, lengths)
+    assert enc.overflow_rows == 0
+    monkeypatch.setattr(E, "_res_width_classes", lambda bps: (6,))
+    forced = TorchEncoder(batch_blocks=4, device="cuda")
+    forced.set_encode_parameter(param)
+    assert forced.encode_many(chans, lengths) == plain
+    assert forced.overflow_rows > 0
+    monkeypatch.setattr(TD, "_download_width", lambda bps: 6)
+    monkeypatch.setattr(TD, "_DL_CHUNK_ROWS", 2)
+    dec = TorchDecoder(device="cuda")
+    for sig, out in zip(sigs, dec.decode_many(plain)):
+        assert np.array_equal(np.stack(out), sig)
+    assert dec.flagged_rows > 0 and dec.download_chunks > 2
+
+
+def test_matmul_routes_on_card_match_cpu(routes):
+    """autocorrelation, unit_forward and fit_layer at order 128 on the card
+    against the CPU port on the same route; on the card the default is the
+    matrix-unit route."""
+    _require_card()
+    assert A._use_matmul_routes(torch.zeros(1, device="cuda")) == routes
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 4, 2, 10240)))
+    p = torch.from_numpy(rng.normal(0, 0.05, (2, 4, 2, 2, 64)))
+    for fn, args, tol in ((A.autocorrelation, (129,), 1e-9),
+                          (A.autocorrelation, (17,), 1e-9),
+                          (A.unit_forward, (p, 2), 1e-11)):
+        cpu = fn(x, *args)
+        card = fn(x.cuda(), *(a.cuda() if torch.is_tensor(a) else a
+                               for a in args)).cpu()
+        np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=tol,
+                                   atol=1e-8)
+    cpu = A.fit_layer(x, 128, 0.0)
+    card = A.fit_layer(x.cuda(), 128, 0.0)
+    assert torch.equal(card[0].cpu(), cpu[0])
+    np.testing.assert_allclose(card[1].cpu().numpy(), cpu[1].numpy(),
+                               atol=1e-10)
+
+
+def test_card_default_route_is_matmul(monkeypatch):
+    _require_card()
+    monkeypatch.setattr(A, "_MATMUL_ROUTES_OVERRIDE", None)
+    assert A._use_matmul_routes(torch.zeros(1, device="cuda"))
+    assert not A._use_matmul_routes(torch.zeros(1))

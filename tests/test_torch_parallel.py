@@ -195,26 +195,11 @@ def test_shards_are_contiguous_and_ordered(rows, k, want):
     assert np.array_equal(torch.cat(parts).numpy(), blocks)
 
 
-def _as_port_layout(ref, out, n):
-    """The JAX analysis output in the port's packed layout: the JAX side
-    tensor carries a residual-width flag and byte-packed coefficient and
-    k2 planes, and the residual rides beside it unpacked."""
-    packed = np.asarray(out["packed"])
-    _ol, _op, off_coefw, off_k2w, side_k, max_parts = ref._side_layout(n)
-    total = sum(ref.preset.layer_num_params)
-    coefs = TpuEncoder._unpack_bytes(packed[..., off_coefw:off_k2w], total,
-                                     signed=True)
-    k2s = TpuEncoder._unpack_bytes(packed[..., off_k2w:side_k], max_parts,
-                                   signed=False)
-    res = np.asarray(out["residual"]).astype(np.int32)
-    return np.concatenate([packed[..., :2], packed[..., 3:off_coefw], coefs,
-                           k2s, res], axis=-1)
-
-
 def test_sharded_analyze_matches_jax():
     """The port's sharded_analyze over two and three entries against the
-    JAX package's over a two-device mesh, bit for bit (every field of the
-    packed result)."""
+    JAX package's over a two-device mesh, bit for bit: the same packed
+    layout (side columns, byte-packed coefficient and k2 planes, the
+    residual plane at the widest W class)."""
     samples = WAVEFORMS["gauss"](_SPB * 8, 2, 16)
     blocks = samples.reshape(2, 8, _SPB).transpose(1, 0, 2).copy()
 
@@ -223,12 +208,12 @@ def test_sharded_analyze_matches_jax():
     plain = enc._analyze_fn(_SPB)[0](torch.from_numpy(blocks))
     ref = TpuEncoder(batch_blocks=8)
     ref.set_encode_parameter(_param(cls=jax_params.EncodeParameter))
-    want = _as_port_layout(ref, jax_mesh.sharded_analyze(
-        ref, jax_mesh.make_block_mesh(jax.devices()[:2]), blocks, _SPB),
-        _SPB)
+    want = np.asarray(jax_mesh.sharded_analyze(
+        ref, jax_mesh.make_block_mesh(jax.devices()[:2]), blocks,
+        _SPB)["packed"])
     for k in (2, 3):
         got = mesh.sharded_analyze(enc, ["cpu"] * k, blocks, _SPB)
-        assert torch.equal(got, plain)
+        assert torch.equal(got, plain["packed"])
         assert np.array_equal(got.numpy(), want)
 
 
