@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Time the port's plain -e corpus encode and pooled decode on one CUDA
-card, to compare two checkouts of the repository within one machine.
+"""Time the port on one CUDA card, to compare two checkouts of the
+repository within one machine.
 
-    python3 chip_pairs.py ROOT LABEL [REPS]
+    python3 chip_pairs.py ROOT LABEL [REPS] [--exact | --autocorr]
 
 Imports linne_tpu_torch from the checkout at ROOT, encodes the seeded
 4 x 30 s stereo corpus of chip_smoke.py (preset 7, block 10240) with
 TorchEncoder.encode_many and decodes it with TorchDecoder.decode_many, REPS
 times (default 3) after one warm-up round, with the card synchronised
-around each call, and checks every decode lossless. Prints one JSON line:
-{"label", "encode_s": [...], "decode_s": [...], "seconds_of_audio",
-"card"}. Run it for the two checkouts in alternating turns (A B B A A B)
-in one call, so both see the same card and host.
+around each call, and checks every decode lossless. With --exact it also
+times exact_serial.autocorr_serial over the 16 call shapes of one preset-7
+fit chunk (512 row-terms; seeded inputs built here, so every checkout sees
+the same; CUDA events, the median of 5 runs of the 16 calls) and
+DeviceExactEncoder.encode_many on the corpus, REPS times after a warm-up,
+each run's streams checked against the host oracle's
+(ParallelExactEncoder). Prints one JSON line: {"label", "encode_s": [...],
+"decode_s": [...], "seconds_of_audio", "card"}, with --exact also
+"autocorr_chunk_ms" (the 5 runs) and "exact_s": [...]. With --autocorr it
+times only autocorr_serial: "autocorr_chunk_ms", "autocorr_call_ms" (each
+call shape alone, [nseg, ns, nlags, median ms of 7]) and "autocorr_digest"
+(a hash of the 16 outputs, equal for checkouts that give the same bits).
+Run it for the two checkouts in alternating turns (A B B A A B) in one
+call, so both see the same card and host.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -50,15 +61,106 @@ def make_track(seconds: float, seed: int) -> np.ndarray:
     return np.clip(np.round(s * 0.6), -32768, 32767).astype(np.int32)
 
 
-def main() -> int:
-    root = pathlib.Path(sys.argv[1]).resolve()
-    label = sys.argv[2]
-    reps = int(sys.argv[3]) if len(sys.argv) > 3 else 3
-    sys.path.insert(0, str(root))
-    import torch
+def preset7_autocorr_calls():
+    """(nseg, ns, nlags) of the 16 autocorr_serial calls of one preset-7
+    fit chunk: 512 row-terms (128 rows x 4 ridge terms), layers 4, 128 and
+    16 at every unit count, block 10240."""
+    calls = []
+    for order in (4, 128, 16):
+        u = 1
+        while u <= order:
+            calls.append((512 * u, SPB // u, order // u + 1))
+            u *= 2
+    return calls
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_pairs: this script needs a CUDA card")
+
+def autocorr_chunk_calls(torch):
+    """The 16 (segments, nlags) calls of a chunk on the card, all views of
+    512 seeded noise-plus-tone rows of one block."""
+    rng = np.random.default_rng(8)
+    t = np.arange(SPB)
+    rows = (rng.normal(0, 0.05, (512, SPB))
+            + 0.4 * np.sin(2 * np.pi * rng.uniform(0.01, 0.2, (512, 1)) * t))
+    base = torch.from_numpy(rows).cuda()
+    return [(base.reshape(nseg, ns), nlags)
+            for nseg, ns, nlags in preset7_autocorr_calls()]
+
+
+def autocorr_chunk_ms(torch, ES, runs: int = 5):
+    """CUDA-event milliseconds of the 16 autocorr_serial calls of a chunk,
+    once per run; device time (the calls are enqueued while the card is
+    still busy)."""
+    calls = autocorr_chunk_calls(torch)
+    for seg, nlags in calls:  # warm-up: builds and loads the kernel
+        ES.autocorr_serial(seg, nlags)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # the calls queue behind a ~5 ms spin of the card: device time only
+        torch.cuda._sleep(10_000_000)
+        start.record()
+        for seg, nlags in calls:
+            ES.autocorr_serial(seg, nlags)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def autocorr_call_ms(torch, ES, runs: int = 7):
+    """Each call of the chunk alone: [nseg, ns, nlags, median CUDA-event
+    ms of runs, each queued behind a ~1 ms spin], and a hash of the
+    outputs."""
+    digest = hashlib.sha256()
+    out = []
+    for seg, nlags in autocorr_chunk_calls(torch):
+        digest.update(ES.autocorr_serial(seg, nlags).cpu().numpy().tobytes())
+        ms = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            ES.autocorr_serial(seg, nlags)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        out.append([seg.shape[0], seg.shape[1], nlags, float(np.median(ms))])
+    return out, digest.hexdigest()[:16]
+
+
+def exact_runs(torch, param, chans, lengths, reps: int):
+    """Wall seconds of DeviceExactEncoder.encode_many on the corpus, reps
+    times after a warm-up, each run's streams equal to the host oracle's."""
+    from linne_tpu_torch.exact.device_encoder import DeviceExactEncoder
+    from linne_tpu_torch.exact.parallel_encoder import ParallelExactEncoder
+
+    host = ParallelExactEncoder()
+    host.set_encode_parameter(param)
+    want = host.encode_many(chans, lengths)
+    times = []
+    for rep in range(reps + 1):  # round 0 warms up
+        enc = DeviceExactEncoder(device="cuda")
+        enc.set_encode_parameter(param)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = enc.encode_many(chans, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if got != want:
+            raise SystemExit("chip_pairs: exact-device streams differ from "
+                             "the host oracle's")
+        if rep:
+            times.append(wall)
+    return times
+
+
+def corpus_runs(torch, label: str, reps: int, exact: bool) -> dict:
+    """The corpus encode and decode, reps times after a warm-up round,
+    every decode lossless; with exact also the autocorr chunk and the
+    exact-device encode."""
     from linne_tpu_torch.codec.encoder import TorchEncoder
     from linne_tpu_torch.codec.params import EncodeParameter
     from linne_tpu_torch.codec.torch_decoder import TorchDecoder
@@ -88,13 +190,40 @@ def main() -> int:
         if rep:
             times["encode_s"].append(t1 - t0)
             times["decode_s"].append(t2 - t1)
+    if exact:
+        from linne_tpu_torch.ops import exact_serial as ES
+
+        times["autocorr_chunk_ms"] = autocorr_chunk_ms(torch, ES)
+        times["exact_s"] = exact_runs(torch, param, chans, lengths, reps)
+    times["seconds_of_audio"] = sum(lengths) / RATE
+    return times
+
+
+def main() -> int:
+    flags = ("--exact", "--autocorr")
+    args = [a for a in sys.argv[1:] if a not in flags]
+    exact = "--exact" in sys.argv[1:]
+    root = pathlib.Path(args[0]).resolve()
+    label = args[1]
+    reps = int(args[2]) if len(args) > 2 else 3
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_pairs: this script needs a CUDA card")
+    if "--autocorr" in sys.argv[1:]:
+        from linne_tpu_torch.ops import exact_serial as ES
+
+        times = {"autocorr_chunk_ms": autocorr_chunk_ms(torch, ES)}
+        times["autocorr_call_ms"], times["autocorr_digest"] = (
+            autocorr_call_ms(torch, ES))
+    else:
+        times = corpus_runs(torch, label, reps, exact)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(json.dumps({"label": label, **times,
-                      "seconds_of_audio": sum(lengths) / RATE,
-                      "card": card}))
+    print(json.dumps({"label": label, **times, "card": card}))
     return 0
 
 

@@ -6,7 +6,10 @@
 Phases (any failure raises and the script exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the kernels from linne_tpu_torch/csrc/synthesis.cu and
-     exact_serial.cu (one nvcc each, started together);
+     exact_serial.cu (one nvcc each, started together, beside a third that
+     prints nvcc -Xptxas -v's registers, shared memory and spills for
+     exact_serial.cu); measure the card's dependent DADD latency with the
+     clock64 probe of exact_serial.cu;
   3. kernel: compare the kernel with its plain torch version on the card,
      bit for bit, at the edge shapes of its design (taps per unit 1..128
      around the 32-lane chunk, rows shorter than a chunk, ragged chunks, a
@@ -29,6 +32,9 @@ Phases (any failure raises and the script exits non-zero):
      against its plain torch version on the card, bit for bit, at the edge
      shapes of its design (odd and even lengths, lags 1..129, orders 1..128,
      a zero-signal row, row counts that are not a multiple of the block);
+     autocorr_serial with each choice of lags a thread at its tile, ring,
+     staging and lag-group edges, with NaN, +-Inf, -0.0 and subnormal
+     samples, and at every call shape of a preset-7 fit at 13 rows;
   9. exact-device path: DeviceExactEncoder.encode_many on the corpus of
      phase 4; every stream byte-identical to the host oracle's
      (ParallelExactEncoder, and ExactEncoder on the first track) and
@@ -38,7 +44,9 @@ Phases (any failure raises and the script exits non-zero):
      with the host share of the quantizer's tap loop and its share of the
      torch ops one chunk dispatches; then every kernel call of one 128-row fit chunk of that corpus,
      recorded, checked bit for bit against the plain version and timed
-     beside its bound and chain bound;
+     beside its bound and chain bound (at the measured DADD latency), with
+     autocorr_serial's plan per call (lags a thread, CTAs, CTAs and warps
+     an SM holds);
  11. -a 2 (preset 7) and -l (preset 1) through DeviceExactEncoder on a
      3-block + tail track, byte-identical to ExactEncoder;
  12. -a 2 and -l on the batched path: TorchEncoder.encode_many on the
@@ -75,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import pathlib
 import subprocess
 import sys
@@ -126,8 +135,8 @@ IMAD_PER_S = 64 * 132 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 # FP64 issue: 64 operations/clk/SM on 132 SMs at the SM clock nvidia-smi
 # reports (a multiply and an add count as two: the exact kernels do not
-# contract them). The chain bound takes a dependent DADD as 8 cycles
-# (reckoned, not measured on the card).
+# contract them). The chain bound takes a dependent DADD as DADD_CYCLES
+# (reckoned) and as the latency exact_serial's probe measures on the card.
 FP64_OPS_PER_CLK = 64 * 132
 DADD_CYCLES = 8
 
@@ -163,6 +172,23 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call, CUDA events, after one warm-up
+    call; the timed calls queue behind a ~1 ms spin of the card, so that
+    the host's enqueue time of a short kernel drops out."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -490,17 +516,86 @@ _PLAIN = {"autocorr_serial": ES.autocorr_serial_ref,
           "chain_predict": ES.chain_predict_ref}
 
 
+def autocorr_special(seg: torch.Tensor) -> torch.Tensor:
+    """NaN, +-Inf, -0.0 and subnormal samples in [6, 2, ns] segments: NaN
+    products (the shield's rerun), 0 * Inf, Inf - Inf sums, signed zeros
+    and subnormal products."""
+    ns = seg.shape[-1]
+    seg[1, 0, 3] = float("nan")
+    seg[1, 1, ns // 2] = float("inf")
+    seg[2, 0, ::2] = float("inf")
+    seg[2, 0, 1::2] = 0.0
+    seg[2, 1, ::5] = -float("inf")
+    seg[3, 0] = -0.0
+    seg[3, 1, 1::3] = -0.0
+    seg[4] *= 2.0 ** -1030
+    seg[5, 0] *= 2.0 ** -530
+    return seg
+
+
+def autocorr_edge_cases():
+    """autocorr_serial against its plain version, bit for bit, at the
+    edges of its design, with its own choice of lags a thread and with each
+    choice forced: odd rows (cp.async staging) and even ones (TMA bulk
+    copies), rows that start off a 16-byte boundary, lags 1..129, nlags ==
+    ns and == 1 and not a multiple of the lags a thread, rows shorter than
+    a tile's window, segment counts that no CTA size divides, rows one
+    short of, at and one past three tiles of the ring, and NaN, +-Inf,
+    -0.0 and subnormal samples; then every call shape of a preset-7 fit at
+    13 rows of 4 ridge terms. Returns (max abs difference, cases)."""
+    err, n = 0.0, 0
+
+    def check(seg, nlags, what):
+        nonlocal err, n
+        got = ES.autocorr_serial(seg, nlags)
+        torch.cuda.synchronize()
+        err = max(err, check_exact("autocorr_serial", got,
+                                   ES.autocorr_serial_ref(seg, nlags), what))
+        n += 1
+
+    shapes = [(13, 1, 10240, 129), (5, 2, 81, 9), (3, 4, 64, 1),
+              (7, 3, 130, 129), (2, 1, 16, 16), (13, 128, 80, 2),
+              (5, 1, 6, 6), (3, 2, 10, 7), (4, 1, 50, 7), (131, 1, 80, 2),
+              (131, 1, 641, 9), (3, 1, 23, 20), (2, 1, 2049, 129)]
+    try:
+        for k in (None,) + ES.AUTOCORR_K_CHOICES:
+            ES._AUTOCORR_K_OVERRIDE = k
+            for rows, units, ns, nlags in shapes:
+                check(seg_inputs(rows, units, ns, rows + ns), nlags,
+                      (k, rows, units, ns, nlags))
+            for nlags in (9, 129):
+                tile = ES.autocorr_plan(13, 10240, nlags, k)["tile"]
+                for extra in (-1, 0, 1):
+                    ns = 3 * tile + extra
+                    check(seg_inputs(13, 1, ns, ns), nlags,
+                          (k, "tiles", ns, nlags))
+            for ns, nlags in ((80, 2), (641, 9), (2048, 129)):
+                check(autocorr_special(seg_inputs(6, 2, ns, ns)), nlags,
+                      (k, "special values", ns, nlags))
+            seg = seg_inputs(9, 1, 1000, 3)
+            flat = torch.empty(seg.numel() + 1, dtype=seg.dtype,
+                               device="cuda")
+            shifted = flat[1:].view(seg.shape)
+            shifted.copy_(seg)
+            require(shifted.data_ptr() % 16 == 8, "unaligned rows")
+            check(shifted, 65, (k, "unaligned rows"))
+    finally:
+        ES._AUTOCORR_K_OVERRIDE = None
+    for order in (4, 128, 16):
+        u = 1
+        while u <= order:
+            check(seg_inputs(13 * 4, u, 10240 // u, u), order // u + 1,
+                  ("preset 7", u, order))
+            u *= 2
+    return err, n
+
+
 def exact_kernel_phase() -> dict:
     """Each exact_serial kernel against its plain version at the edges of
     its design. Returns the max abs difference per kernel."""
     err = dict.fromkeys(ES.KERNELS, 0.0)
+    err["autocorr_serial"], n_autocorr = autocorr_edge_cases()
     cases = []
-    # 13 rows is not a multiple of the kernels' 128-thread blocks
-    for rows, units, ns, nlags in [(13, 1, 10240, 129), (5, 2, 81, 9),
-                                   (3, 4, 64, 1), (7, 3, 130, 129),
-                                   (2, 1, 16, 16), (13, 128, 80, 2)]:
-        cases.append(("autocorr_serial",
-                      (seg_inputs(rows, units, ns, rows + ns), nlags)))
     for order in (1, 2, 31, 32, 33, 64, 128):
         seg = seg_inputs(13, 1, 4 * order + 16, order)
         seg[3] *= 1e-5
@@ -528,7 +623,7 @@ def exact_kernel_phase() -> dict:
     require(bool(zero_case[0]) and not bool(zero_case[1]),
             "the zero-signal row did not take the early-out")
     print(f"exact_serial kernels bit-equal to their plain versions at "
-          f"{len(cases)} edge shapes")
+          f"{len(cases) + n_autocorr} edge cases")
     return err
 
 
@@ -636,11 +731,12 @@ def exact_profile_phase(chans, lengths, unprofiled_wall) -> None:
           f" ms in {n_other} launches")
 
 
-def exact_bound(name: str, args, clock_hz: float):
+def exact_bound(name: str, args, clock_hz: float,
+                dadd_cycles: float = DADD_CYCLES):
     """(bound ms, "operations" | "bytes", chain ms) of one kernel call:
     FP64 operations over the issue rate against bytes over the memory
     rate, and the call's longest dependent chain of additions at
-    DADD_CYCLES each."""
+    dadd_cycles each."""
     if name == "autocorr_serial":
         seg, nlags = args
         ns = seg.shape[-1]
@@ -667,7 +763,7 @@ def exact_bound(name: str, args, clock_hz: float):
         chain = npu
     t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    chain_ms = 1e3 * chain * DADD_CYCLES / clock_hz
+    chain_ms = 1e3 * chain * dadd_cycles / clock_hz
     if t_ops >= t_bytes:
         return 1e3 * t_ops, "operations", chain_ms
     return 1e3 * t_bytes, "bytes", chain_ms
@@ -743,12 +839,13 @@ def count_fit_ops(fit, x: torch.Tensor):
         return count_ops(fit, x, inside=lambda: quant.inside)
 
 
-def exact_calls_phase(tracks, clock_hz: float) -> dict:
+def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
     """Record every exact_serial call of one 128-row fit chunk of the
     corpus (the main path's shapes), then check each against the plain
     version and time kernel, plain version and fast graph per call.
     Returns per kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    chain_ms, fast_ms, calls}, summed over the chunk's calls."""
+    chain_ms, fast_ms, calls}, summed over the chunk's calls; chain_ms at
+    the measured DADD latency."""
     p = param()
     t0 = time.perf_counter()
     planes = []
@@ -812,12 +909,13 @@ def exact_calls_phase(tracks, clock_hz: float) -> dict:
     out = {}
     for name in ES.KERNELS:
         r = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-             "bound_ms": 0.0, "chain_ms": 0.0, "fast_ms": 0.0,
-             "calls": len(calls[name])}
+             "bound_ms": 0.0, "chain_ms": 0.0, "chain8_ms": 0.0,
+             "fast_ms": 0.0, "calls": len(calls[name])}
         by = {"operations": 0.0, "bytes": 0.0}
         for args in calls[name]:
             kernel = getattr(ES, name)
-            r["ms"] += cuda_ms(lambda: kernel(*args), reps=5)
+            call_ms = kernel_ms(lambda: kernel(*args), reps=5)
+            r["ms"] += call_ms
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -830,18 +928,54 @@ def exact_calls_phase(tracks, clock_hz: float) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], check_exact(
                 name, kernel(*args), want, shape))
             r["fast_ms"] += cuda_ms(lambda: fast_version(name, args), reps=1)
-            b_ms, b_by, c_ms = exact_bound(name, args, clock_hz)
+            b_ms, b_by, c_ms = exact_bound(name, args, clock_hz, dadd_cycles)
             r["bound_ms"] += b_ms
             r["chain_ms"] += c_ms
+            r["chain8_ms"] += exact_bound(name, args, clock_hz)[2]
             by[b_by] += b_ms
+            if name == "autocorr_serial":
+                autocorr_call_line(args, call_ms, b_ms, b_by, c_ms)
         r["bound_by"] = max(by, key=by.get)
         out[name] = r
         print(f"exact-device calls {name}: {r['calls']} calls in one "
               f"{rows.shape[0]}-row chunk, bit-equal; kernel "
               f"{r['ms']:.4f} ms, plain torch {r['plain_ms']:.3f} ms, fast "
               f"graph {r['fast_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), chain bound {r['chain_ms']:.4f} ms")
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of "
+              f"it reached), chain bound {r['chain_ms']:.4f} ms at the "
+              f"measured {dadd_cycles:.2f} cycles a DADD "
+              f"({r['chain8_ms']:.4f} ms at {DADD_CYCLES})")
     return out
+
+
+def autocorr_call_line(args, ms, bound_ms, bound_by, chain_ms) -> None:
+    """One autocorr_serial call of the chunk: its shape, the kernel's plan
+    (lags a thread, CTA size, CTAs, CTAs and warps an SM holds at once),
+    its time beside its bound and chain bound, and its time with each
+    choice of lags a thread forced."""
+    seg, nlags = args
+    ns = seg.shape[-1]
+    nseg = seg.numel() // ns
+    p = ES.autocorr_plan(nseg, ns, nlags)
+    warps = p["threads"] // 32
+    resident = min(p["ctas"], p["ctas_per_sm"] * p["sms"])
+    forced = []
+    try:
+        for k in ES.AUTOCORR_K_CHOICES:
+            ES._AUTOCORR_K_OVERRIDE = k
+            k_ms = kernel_ms(lambda: ES.autocorr_serial(*args), reps=5)
+            forced.append(f"{k_ms:.4f}")
+    finally:
+        ES._AUTOCORR_K_OVERRIDE = None
+    print(f"  autocorr_serial [{nseg}, {ns}] x {nlags} lags: K {p['k']}, "
+          f"{p['threads']} threads x {p['ctas']} CTAs, tile {p['tile']} x "
+          f"{p['stages']} stages, {p['smem_bytes']} B shared, "
+          f"{p['ctas_per_sm']} CTAs ({p['ctas_per_sm'] * warps} warps) an "
+          f"SM can hold, {resident * warps / p['sms']:.2f} warps an SM in "
+          f"this call; {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), chain bound {chain_ms:.4f} ms; K "
+          f"{'/'.join(map(str, ES.AUTOCORR_K_CHOICES))} forced: "
+          f"{'/'.join(forced)} ms")
 
 
 def exact_flags_phase() -> None:
@@ -1353,6 +1487,30 @@ def routes_phase(tracks) -> None:
           f"{names[default]}")
 
 
+def ptxas_report(name: str) -> str:
+    """nvcc -Xptxas -v's registers, shared memory and spills for each
+    kernel of csrc/<name>.cu (a throwaway build beside the real one)."""
+    src = ROOT / "linne_tpu_torch" / "csrc" / f"{name}.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_kernels.find_nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v",
+             "-o", str(pathlib.Path(tmp) / "lib.so"), str(src)],
+            capture_output=True, text=True)
+    require(proc.returncode == 0, f"nvcc -Xptxas -v failed on {src}")
+    lines, kernel = [], None
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            # _ZN..._<len>autocorr_kernelILi4EEEv... -> autocorr_kernel<4>
+            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?",
+                          line.split("'")[1])
+            kernel = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                      if m else line.split("'")[1])
+        elif kernel and ("spill" in line or "Used" in line):
+            text = line.split(":", 1)[1] if "Used" in line else line
+            lines.append(f"  {kernel}: {text.strip()}")
+    return f"ptxas -v, {name}.cu:\n" + "\n".join(lines)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1372,13 +1530,18 @@ def main() -> int:
     print(f"SM clock (max): {clock_hz / 1e6:.0f} MHz")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        report = pool.submit(ptxas_report, "exact_serial")
         list(pool.map(_kernels.build, ["synthesis", "exact_serial"]))
+        print(report.result())
     S._kernel_fn()
     for k in ES.KERNELS:
         ES._fn(k)
     print(f"built synthesis and exact_serial in "
           f"{time.perf_counter() - t0:.2f} s")
+    dadd = ES.dadd_cycles()
+    print(f"DADD latency: {dadd:.3f} cycles a dependent __dadd_rn "
+          f"(clock64 probe in exact_serial.cu; {DADD_CYCLES} reckoned)")
 
     kernel = kernel_phase()
     launches, datas, plain_multiple = main_path_phase()
@@ -1391,7 +1554,7 @@ def main() -> int:
     edge_err = exact_kernel_phase()
     tracks = corpus()
     exact_launches, exact_refs = exact_encode_phase(tracks)
-    exact = exact_calls_phase(tracks, clock_hz)
+    exact = exact_calls_phase(tracks, clock_hz, dadd)
     exact_flags_phase()
     learn_af_phase(tracks, plain_multiple)
     learn_af_dispatch_phase()

@@ -4,15 +4,11 @@
 // sums of its strict fit graph to XLA as `lax.scan` loops
 // (linne_tpu/ops/exact_device.py). Run as plain torch, every step of such a
 // scan is a kernel launch, some 10^5 launches per fit chunk, so each chain
-// is a kernel here, one thread per independent chain, running the
-// reference's loop in the reference's order:
+// is a kernel here, running the reference's loop in the reference's order:
 //
 //   autocorr_serial   replaces _autocorr_serial (:148):
 //                     ac[s, lag] = sum_i seg[s, i] * seg[s, i + lag],
-//                     i = 0, 1, ... from +0.0; one thread per (segment,
-//                     lag), neighbouring lags in neighbouring lanes, so a
-//                     warp reads seg[s, i] once (broadcast) and
-//                     seg[s, i + lag] as one coalesced line per step.
+//                     i = 0, 1, ... from +0.0. Staged and blocked (below).
 //   levinson_serial   replaces _levinson_serial (:203) and its scan tail
 //                     _levinson_scan_tail (:247): the Levinson-Durbin
 //                     recursion op for op; one thread per segment, a[] in
@@ -24,15 +20,31 @@
 //                     the sample itself as the chain's start; one thread
 //                     per (row, t), neighbouring t in neighbouring lanes.
 //
+// autocorr_serial. Each (segment, lag) sum is one chain of ns - lag
+// dependent adds; a call has nseg * nlags of them. A thread runs K chains
+// (lags l0 .. l0 + K - 1 of one segment, K = 1, 2 or 4 by call shape) and
+// keeps them in registers, interleaved. A CTA of 32-128 threads takes
+// consecutive (segment, lag group) tasks and stages its segments through a
+// ring of two shared-memory tiles: per segment the samples of a tile and
+// the window the tile's lags reach past it, one TMA bulk copy a segment
+// (cp.async.bulk, completing on an mbarrier; 8-byte cp.async where a row
+// is not 16-byte aligned), tile t + 1 in flight while the threads run tile
+// t. A chain step then reads shared memory and registers only, and a block
+// of 8 steps loads 16 samples for 8K products, a block ahead of its use.
+//
 // Exactness. Every product and sum is __dmul_rn / __dadd_rn and every
 // quotient __ddiv_rn: nvcc contracts `a + x * y` into an FMA by default,
 // and the intrinsics are never contracted, so the shared build flags stay
 // as they are. Products the JAX graph takes behind its FMA shield
-// (`_mulsh`: a NaN product becomes 0) do the same here (mulsh below).
-// The autocorrelation's JAX scan also adds the products with its zero
-// padding past the segment's end; adding +-0.0 to a sum that started at
-// +0.0 never changes it (the sum is never -0.0), so the loop here stops at
-// the end instead.
+// (`_mulsh`: a NaN product becomes 0) do the same here (mulsh below). No
+// chain is split, reordered or contracted: each is one thread's serial
+// __dadd_rn sequence in i. The autocorrelation's JAX scan adds the
+// products with its zero padding past the segment's end; the staged tiles
+// hold zeros there too, so the last tile's steps past ns add +-0.0 (or a
+// shielded 0 * Inf) to a sum that started at +0.0 and so is never -0.0:
+// bit-neutral. The chains first run unshielded: a NaN product makes the
+// sum NaN for good, so a sum that ends not NaN is the shielded sum; a CTA
+// with a NaN sum runs again with the shield.
 //
 // Bound. At preset 7 (layers 4, 128, 16; four ridge terms; block 10240;
 // 128 rows a chunk, so 512 row-terms) the work of one chunk is mostly
@@ -45,6 +57,7 @@
 // 3.35 TB/s). Beside the issue bound stands each chain's latency: 10,240
 // dependent adds for the longest autocorrelation and abs-mean chains,
 // about 8,128 dependent multiply-add steps for the order-128 recursion.
+// dadd_probe_kernel measures a dependent add's latency on the card.
 
 #include <cstdint>
 
@@ -61,19 +74,337 @@ __device__ __forceinline__ double mulsh(double x, double y) {
   return p == p ? p : 0.0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    autocorr_kernel(const double* __restrict__ seg, double* __restrict__ ac,
-                    int64_t nseg, int ns, int nlags) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= nseg * nlags) return;
-  const int64_t s = idx / nlags;
-  const int lag = static_cast<int>(idx - s * nlags);
-  const double* x = seg + s * ns;
-  double acc = 0.0;
-  for (int i = 0; i + lag < ns; ++i) {
-    acc = __dadd_rn(acc, mulsh(__ldg(x + i), __ldg(x + i + lag)));
+// -- autocorr_serial ---------------------------------------------------------
+
+constexpr int kAcThreads = 128;  // the most threads a CTA: 4 warps
+// Dynamic shared memory a CTA may take: at 100 KB two CTAs share an SM's
+// 227 KB, at 72 KB three (plan_for).
+constexpr int kAcSmemBudget = 100 * 1024;
+constexpr int kAcSmemBudget3 = 72 * 1024;
+// Steps a block of run_tile: the unit of its register window and loads.
+constexpr int kAcBlock = 8;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool valid) {
+  // src-size 0 fills the 8 bytes with zeros
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of bulk copies to complete.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
-  ac[idx] = acc;
+}
+
+// A TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(double* dst, const double* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One CTA's share of the flattened [nseg, groups] task grid: blockDim.x
+// consecutive (segment, lag group) tasks, and where their samples sit in
+// shared memory. A stage holds, per segment j the CTA touches, the window
+// region: samples [t0 + lo_j, t0 + lo_j + width) of the tile at t0 (the
+// x[i + lag] operands; lo_j is the first lag the CTA runs of segment j,
+// rounded down to even), at j * stride. The x[i] operands are the window
+// region's head, except for a first segment that starts past lag 0: its
+// samples [t0, t0 + tile + kAcBlock) sit at nsc * stride. Samples at or
+// past ns read as zeros.
+struct AcCta {
+  const double* seg;
+  double* smem;
+  uint64_t* bars;  // one mbarrier a stage (bulk copies)
+  int64_t s_lo;    // first segment
+  int nsc;         // segments touched
+  int lo0;         // lo_0, even
+  int ns;
+  int tile;        // samples a tile, a multiple of 3 * kAcBlock
+  int width;       // samples of a window region: tile + span, even
+  int stride;      // doubles between window regions, 2 mod 4
+  int stage;       // doubles a stage
+  bool bulk;       // ns even and seg 16-byte aligned: TMA bulk copies
+  unsigned uses0, uses1;  // tiles staged into each stage so far
+};
+
+__device__ __forceinline__ int ac_head(const AcCta& c) {
+  return c.tile + kAcBlock;
+}
+
+// Stages the tile at t0 into stage b. With bulk copies thread 0 issues one
+// TMA copy a region and the threads zero what lies past ns; else every
+// thread copies 8-byte samples with cp.async, as one commit group.
+__device__ __forceinline__ void stage_tile(AcCta& c, int b, int t0) {
+  double* buf = c.smem + b * c.stage;
+  if (b) {
+    ++c.uses1;
+  } else {
+    ++c.uses0;
+  }
+  const int nreg = c.nsc + (c.lo0 ? 1 : 0);
+  // region q: segment q < nsc (window) or the first segment's head
+  auto region = [&](int q, const double*& src, double*& dst, int& len) {
+    const bool head = q == c.nsc;
+    const int start = t0 + (head || q ? 0 : c.lo0);
+    const int size = head ? ac_head(c) : c.width;
+    src = c.seg + (c.s_lo + (head ? 0 : q)) * c.ns + start;
+    dst = buf + q * c.stride;
+    len = c.ns - start < size ? (c.ns - start > 0 ? c.ns - start : 0) : size;
+    return size;
+  };
+  if (c.bulk) {
+    for (int q = 0; q < nreg; ++q) {
+      const double* src;
+      double* dst;
+      int len;
+      const int size = region(q, src, dst, len);
+      for (int i = len + threadIdx.x; i < size; i += blockDim.x) dst[i] = 0.0;
+    }
+    if (threadIdx.x == 0) {
+      unsigned bytes = 0;
+      for (int q = 0; q < nreg; ++q) {
+        const double* src;
+        double* dst;
+        int len;
+        region(q, src, dst, len);
+        bytes += 8u * len;
+      }
+      // the threads' earlier reads of this stage precede the async writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect(c.bars + b, bytes);
+      for (int q = 0; q < nreg; ++q) {
+        const double* src;
+        double* dst;
+        int len;
+        region(q, src, dst, len);
+        if (len) bulk_copy(dst, src, 8u * len, c.bars + b);
+      }
+    }
+  } else {
+    for (int q = 0; q < nreg; ++q) {
+      const double* src;
+      double* dst;
+      int len;
+      const int size = region(q, src, dst, len);
+      for (int i = threadIdx.x; i < size; i += blockDim.x) {
+        cp_async8(dst + i, i < len ? src + i : c.seg, i < len);
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// Waits until the tile last staged into stage b has landed, for every
+// thread (`last`: no later tile is in flight).
+__device__ __forceinline__ void wait_tile(const AcCta& c, int b, bool last) {
+  if (c.bulk) {
+    mbar_wait(c.bars + b, ((b ? c.uses1 : c.uses0) - 1) & 1);
+  } else if (last) {
+    cp_async_wait<0>();
+  } else {
+    cp_async_wait<1>();
+  }
+  __syncthreads();
+}
+
+template <bool kShield>
+__device__ __forceinline__ double product(double x, double y) {
+  if constexpr (kShield) return mulsh(x, y);
+  return __dmul_rn(x, y);
+}
+
+// S consecutive samples from p: 16-byte loads where p is even.
+template <int S, bool kPairs>
+__device__ __forceinline__ void load_run(const double* p, double (&v)[S]) {
+  if constexpr (kPairs) {
+    const double2* q = reinterpret_cast<const double2*>(p);
+#pragma unroll
+    for (int j = 0; j < S / 2; ++j) {
+      const double2 t = q[j];
+      v[2 * j] = t.x;
+      v[2 * j + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < S; ++j) v[j] = p[j];
+  }
+}
+
+// One tile of K chains, lags l0 .. l0 + K - 1 of one segment: xa[i] is
+// x[t0 + i], xw[r + i] is x[t0 + i + l0] (r = l0 - lo of the region).
+// Step i adds x[i] * x[i + l0 + k] to chain k, in order of i. A block of
+// S = kAcBlock steps from i0 needs x[i0 .. i0 + S - 1] and the window
+// x[i0 + l0 .. i0 + l0 + K + S - 2]: its first K samples are the last K of
+// the previous block's, so a block loads 2S samples for S * K products.
+// The lanes of a warp load windows K samples apart; as 16-byte loads (K
+// even) that is conflict-free for K = 2. The source issues the next
+// block's loads before a block's adds (ptxas moves many of them next to
+// their use, where their latency shows), and three register sets
+// rotate, so the loop carries no dependence but the K chains and needs no
+// register moves.
+template <int K, bool kShield>
+__device__ __forceinline__ void run_tile(const double* xa, const double* xw,
+                                         int r, int tile, double (&acc)[K]) {
+  constexpr int S = kAcBlock;
+  static_assert(K <= S && S % 2 == 0, "block of S steps, K <= S");
+  constexpr bool kPairs = K % 2 == 0;
+  double r0[S], r1[S], r2[S], a0[S], a1[S], a2[S];
+  auto load = [&](int i, double (&a)[S], double (&fresh)[S]) {
+    load_run<S, true>(xa + i, a);
+    load_run<S, kPairs>(xw + r + i + K, fresh);
+  };
+  // prev[S - K + m] is x[i0 + l0 + m] for m < K, fresh[m - K] above
+  auto block = [&](const double (&a)[S], const double (&prev)[S],
+                   const double (&fresh)[S]) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const double y = j + k < K ? prev[S - K + j + k] : fresh[j + k - K];
+        acc[k] = __dadd_rn(acc[k], product<kShield>(a[j], y));
+      }
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < K; ++k) r0[S - K + k] = xw[r + k];
+  load(0, a0, r1);
+  for (int i0 = 0; i0 < tile; i0 += 3 * S) {
+    load(i0 + S, a1, r2);
+    block(a0, r0, r1);
+    load(i0 + 2 * S, a2, r0);
+    block(a1, r1, r2);
+    load(i0 + 3 * S, a0, r1);
+    block(a2, r2, r0);
+  }
+}
+
+// Every tile of the CTA's segments through a ring of two stages: tile
+// t + 1 is in flight while the threads run tile t.
+template <int K, bool kShield>
+__device__ __forceinline__ void run_tiles(AcCta& c, int ls, int r,
+                                          double (&acc)[K]) {
+  const int ntiles = (c.ns + c.tile - 1) / c.tile;
+  stage_tile(c, 0, 0);
+  if (ntiles > 1) stage_tile(c, 1, c.tile);
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
+  for (int t = 0; t < ntiles; ++t) {
+    wait_tile(c, t & 1, t + 1 == ntiles);
+    const double* buf = c.smem + (t & 1) * c.stage;
+    const double* xw = buf + ls * c.stride;
+    const double* xa = (ls == 0 && c.lo0) ? buf + c.nsc * c.stride : xw;
+    run_tile<K, kShield>(xa, xw, r, c.tile, acc);
+    if (t + 2 < ntiles) {
+      __syncthreads();  // every thread is done with this stage
+      stage_tile(c, t & 1, (t + 2) * c.tile);
+    }
+  }
+}
+
+// Thread t of CTA b runs lag group g = task % groups of segment
+// task / groups (task = b * blockDim.x + t): lags g*K .. g*K + K - 1.
+// Lanes past the last task repeat it and store nothing.
+//
+// The chains first run without the NaN shield. A product is NaN only if
+// an operand is NaN or it is 0 * Inf, and a NaN product makes the chain's
+// sum NaN for good; so a chain that ends not NaN met no NaN product, and
+// its sum is the shielded sum, bit for bit. Where any chain of the CTA
+// ends NaN, the CTA runs again with the shield.
+template <int K>
+__global__ void __launch_bounds__(kAcThreads)
+    autocorr_kernel(const double* __restrict__ seg, double* __restrict__ ac,
+                    int64_t nseg, int ns, int nlags, int groups, int tile,
+                    int width, int stride, int segs, int bulk) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ __align__(8) uint64_t bars[2];
+  const int64_t tasks = nseg * groups;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int64_t end =
+      tasks < first + blockDim.x ? tasks : first + blockDim.x;
+  AcCta c;
+  c.seg = seg;
+  c.smem = smem;
+  c.bars = bars;
+  c.s_lo = first / groups;
+  c.nsc = static_cast<int>((end - 1) / groups - c.s_lo) + 1;
+  c.lo0 = (static_cast<int>(first - c.s_lo * groups) * K) & ~1;
+  c.ns = ns;
+  c.tile = tile;
+  c.width = width;
+  c.stride = stride;
+  c.stage = segs * stride + ac_head(c);
+  c.bulk = bulk != 0;
+  c.uses0 = c.uses1 = 0;
+  const bool live = first + threadIdx.x < end;
+  const int64_t task = live ? first + threadIdx.x : end - 1;
+  const int ls = static_cast<int>(task / groups - c.s_lo);
+  const int l0 = static_cast<int>(task % groups) * K;
+  const int r = l0 - (ls == 0 ? c.lo0 : 0);  // lag offset in the region
+  if (c.bulk && threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  double acc[K];
+  run_tiles<K, false>(c, ls, r, acc);
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < K; ++k) nan |= l0 + k < nlags && acc[k] != acc[k];
+  if (__syncthreads_or(live && nan)) {
+    run_tiles<K, true>(c, ls, r, acc);
+  }
+  if (live) {
+    double* out = ac + (c.s_lo + ls) * nlags;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (l0 + k < nlags) out[l0 + k] = acc[k];
+    }
+  }
 }
 
 // The recursion of linne_tpu/ops/exact_device.py:203-244 on one segment.
@@ -162,6 +493,158 @@ __global__ void __launch_bounds__(kThreads)
   nobase[idx] = nb;
 }
 
+// A dependent chain of n __dadd_rn in one warp, timed with clock64: the
+// card's DADD latency is (cycles(n2) - cycles(n1)) / (n2 - n1).
+__global__ void dadd_probe_kernel(double x, int n, long long* cycles,
+                                  double* out) {
+  double a = x;
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (int i = 0; i < n; ++i) a = __dadd_rn(a, x);
+  const long long t1 = clock64();
+  out[threadIdx.x] = a;
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+}
+
+// How autocorr_serial runs one call shape.
+struct AcPlan {
+  int k;         // chains (lags) a thread
+  int threads;   // a CTA: 32, 64 or 128 (plan_for)
+  int groups;    // lag groups a segment: ceil(nlags / k)
+  int tile;      // samples a tile, a multiple of 3 * kAcBlock
+  int stages;    // 1: the whole segment is one tile; 2: a ring of two
+  int width;     // samples of a window region: tile + span
+  int stride;    // doubles between window regions: width, made 2 mod 4
+  int segs;      // the most segments a CTA touches
+  int64_t ctas;
+  int64_t smem;  // bytes of dynamic shared memory a CTA
+};
+
+// The plan of a call at a CTA size and a shared-memory budget a CTA: the
+// whole segment as one tile where it fits the budget, else two stages of
+// the largest tile that fits.
+AcPlan plan_at(int64_t nseg, int ns, int nlags, int k, int threads,
+               int64_t budget) {
+  AcPlan p{};
+  p.k = k;
+  p.threads = threads;
+  p.groups = (nlags + k - 1) / k;
+  const int64_t tasks = nseg * p.groups;
+  p.ctas = (tasks + threads - 1) / threads;
+  const int64_t touched = (threads - 1 + p.groups - 1) / p.groups + 1;
+  p.segs = static_cast<int>(touched < nseg ? touched : nseg);
+  // a window region reaches K + kAcBlock samples past its last lag group's
+  // first lag, one more where its first lag was rounded down to even
+  const int span =
+      ((p.groups < threads ? p.groups : threads) * k + kAcBlock + 2) & ~1;
+  const int step = 3 * kAcBlock;  // run_tile takes three blocks a turn
+  // 16-byte aligned regions whose 16-byte halves map to odd bank quads
+  auto stride_of = [](int width) { return width % 4 ? width : width + 2; };
+  auto bytes = [&](int tile, int stages) {
+    const int64_t head = tile + kAcBlock;
+    return static_cast<int64_t>(stages) * 8 *
+           (p.segs * stride_of(tile + span) + head);
+  };
+  p.tile = (ns + step - 1) / step * step;
+  p.stages = 1;
+  if (bytes(p.tile, 1) > budget) {
+    p.stages = 2;
+    // a stage holds about (segs + 1) tile doubles
+    const int64_t fit =
+        (budget / 16 - p.segs * (span + 2) - step) / (p.segs + 1) / step *
+        step;
+    if (fit < p.tile) p.tile = static_cast<int>(fit > step ? fit : step);
+    while (p.tile > step && bytes(p.tile, 2) > budget) p.tile -= step;
+  }
+  p.width = p.tile + span;
+  p.stride = stride_of(p.width);
+  p.smem = bytes(p.tile, p.stages);
+  return p;
+}
+
+// CTAs of 128 threads, or of 64 or 32 where 128 would leave an SM without
+// two. Where the segments then fit whole in one stage, one-warp CTAs take
+// them: they hold the fewest segments, so the most fit an SM at once and
+// one CTA's copy overlaps another's chains. Longer segments run two stages,
+// and CTAs of two or more warps take a smaller budget, so that three share
+// an SM.
+AcPlan plan_for(int64_t nseg, int ns, int nlags, int k, int sms) {
+  const int64_t tasks = nseg * ((nlags + k - 1) / k);
+  int threads = kAcThreads;
+  while (threads > 32 &&
+         (tasks + threads - 1) / threads < 2 * static_cast<int64_t>(sms)) {
+    threads /= 2;
+  }
+  if (plan_at(nseg, ns, nlags, k, threads, kAcSmemBudget).stages == 1) {
+    return plan_at(nseg, ns, nlags, k, 32, kAcSmemBudget);
+  }
+  return plan_at(nseg, ns, nlags, k, threads,
+                 threads > 32 ? kAcSmemBudget3 : kAcSmemBudget);
+}
+
+// The chains (lags) a thread runs. A warp is one chain-stepping stream of
+// its SM sub-partition; where a call has few chains for the card's 4 * sms
+// sub-partitions, a step costs a dependent add and one chain a thread
+// keeps the most warps in flight; where it has many, K chains a thread
+// share each loaded sample among K products. The thresholds give the
+// fastest forced choice at 15 of the 16 call shapes of a preset-7 fit
+// chunk on an H100 (chip_smoke.py phase 10; PERF.md).
+int choose_k(int64_t nseg, int nlags, int sms) {
+  const double per_sp = static_cast<double>(nseg) * nlags / (4.0 * sms);
+  if (nlags <= 2 || per_sp < 12.0) return 1;
+  return per_sp < 64.0 ? 2 : 4;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Lets autocorr_kernel<K> take up to kAcSmemBudget bytes of dynamic shared
+// memory (past the default 48 KB) on the current device, once a device.
+template <int K>
+cudaError_t allow_smem() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(autocorr_kernel<K>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kAcSmemBudget);
+  if (e == cudaSuccess && cached) done[dev] = true;
+  return e;
+}
+
+template <int K>
+int launch_autocorr(const AcPlan& p, const double* seg, double* ac,
+                    int64_t nseg, int ns, int nlags, cudaStream_t stream) {
+  const cudaError_t e = allow_smem<K>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // TMA bulk copies need 16-byte aligned rows: an even ns from an aligned
+  // base; other shapes stage with cp.async
+  const int bulk =
+      ns % 2 == 0 && reinterpret_cast<uintptr_t>(seg) % 16 == 0 ? 1 : 0;
+  autocorr_kernel<K><<<static_cast<unsigned>(p.ctas), p.threads,
+                       static_cast<size_t>(p.smem),
+                       stream>>>(seg, ac, nseg, ns, nlags, p.groups, p.tile,
+                                 p.width, p.stride, p.segs, bulk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The current device's SM count, read once a device (132 if unknown).
+int sm_count() {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return 132;
+  }
+  if (!sms[dev]) {
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms[dev] ? sms[dev] : 132;
+}
+
+bool valid_k(int k) { return k == 1 || k == 2 || k == 4; }
+
 unsigned blocks_for(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
@@ -173,16 +656,72 @@ unsigned blocks_for(int64_t threads) {
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // shapes it does not take).
 
-// seg [nseg, ns] -> ac [nseg, nlags], 1 <= nlags <= ns.
+// seg [nseg, ns] -> ac [nseg, nlags], 1 <= nlags <= ns; k chains a thread
+// (1, 2 or 4), or 0 for choose_k's.
+extern "C" int linne_autocorr_serial_k(const double* seg, double* ac,
+                                       int64_t nseg, int ns, int nlags, int k,
+                                       void* stream) {
+  if (nseg < 1 || ns < 1 || nlags < 1 || nlags > ns ||
+      (k != 0 && !valid_k(k))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int sms = sm_count();
+  if (k == 0) k = choose_k(nseg, nlags, sms);
+  const AcPlan p = plan_for(nseg, ns, nlags, k, sms);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 1: return launch_autocorr<1>(p, seg, ac, nseg, ns, nlags, st);
+    case 2: return launch_autocorr<2>(p, seg, ac, nseg, ns, nlags, st);
+    default: return launch_autocorr<4>(p, seg, ac, nseg, ns, nlags, st);
+  }
+}
+
 extern "C" int linne_autocorr_serial(const double* seg, double* ac,
                                      int64_t nseg, int ns, int nlags,
                                      void* stream) {
-  if (nseg < 1 || ns < 1 || nlags < 1 || nlags > ns) {
+  return linne_autocorr_serial_k(seg, ac, nseg, ns, nlags, 0, stream);
+}
+
+// The plan of one autocorr_serial call (k as above) into out[10]: k,
+// threads a CTA, lag groups a segment, tile, stages, segments a CTA, CTAs,
+// shared bytes a CTA, CTAs an SM holds at once (the occupancy calculator),
+// SMs.
+extern "C" int linne_autocorr_plan(int64_t nseg, int ns, int nlags, int k,
+                                   int64_t* out) {
+  if (nseg < 1 || ns < 1 || nlags < 1 || nlags > ns ||
+      (k != 0 && !valid_k(k))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  autocorr_kernel<<<blocks_for(nseg * nlags), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(seg, ac, nseg, ns,
-                                                         nlags);
+  const int sms = sm_count();
+  if (k == 0) k = choose_k(nseg, nlags, sms);
+  const AcPlan p = plan_for(nseg, ns, nlags, k, sms);
+  int per_sm = 0;
+  cudaError_t e = cudaSuccess;
+  auto occupancy = [&](auto kernel, cudaError_t allowed) {
+    e = allowed;
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, p.threads, static_cast<size_t>(p.smem));
+    }
+  };
+  switch (k) {
+    case 1: occupancy(autocorr_kernel<1>, allow_smem<1>()); break;
+    case 2: occupancy(autocorr_kernel<2>, allow_smem<2>()); break;
+    default: occupancy(autocorr_kernel<4>, allow_smem<4>()); break;
+  }
+  const int64_t v[10] = {p.k,    p.threads, p.groups, p.tile,  p.stages,
+                         p.segs, p.ctas,    p.smem,   per_sm, sms};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return static_cast<int>(e);
+}
+
+// cycles[0] <- the clock64 cycles of a chain of n dependent __dadd_rn in
+// one warp (out [32] float64 keeps the chain live), launched on stream.
+extern "C" int linne_dadd_probe(double x, int n, long long* cycles,
+                                double* out, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  dadd_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, n, cycles, out);
   return static_cast<int>(cudaGetLastError());
 }
 

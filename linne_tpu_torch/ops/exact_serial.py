@@ -3,10 +3,13 @@
 The JAX package ran these sums as `lax.scan` loops
 (linne_tpu/ops/exact_device.py `_autocorr_serial`, `_levinson_serial`,
 `_serial_abs_mean`, `_chain_predict`). Here each is a hand-written CUDA
-kernel (csrc/exact_serial.cu: one thread per independent chain, the
-reference's loop in the reference's order, every operation rounded on its
-own) with a plain torch version beside it that takes the same operations
-one tensor op at a time.
+kernel (csrc/exact_serial.cu: the reference's loop in the reference's
+order, every operation rounded on its own) with a plain torch version
+beside it that takes the same operations one tensor op at a time. The
+autocorrelation kernel stages its segments through shared-memory tiles
+with TMA bulk copies and runs 1, 2 or 4 lags a thread, each lag's sum one
+serial chain of adds in a register; the other three run one thread per
+independent chain.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors. There is no fallback from one to the other.
@@ -37,12 +40,21 @@ KERNEL_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # The recursion's local array holds the format's largest layer order.
 KERNEL_MAX_ORDER = 128
 
+# Chains a thread of the autocorrelation kernel runs (1, 2 or 4); None
+# lets the kernel choose by call shape. Set only to compare
+# the choices: every choice gives the same bits.
+_AUTOCORR_K_OVERRIDE = None
+AUTOCORR_K_CHOICES = (1, 2, 4)
+
 _F64 = torch.float64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
     "autocorr_serial": [_P, _P, _L, _I, _I, _P],
+    "autocorr_serial_k": [_P, _P, _L, _I, _I, _I, _P],
+    "autocorr_plan": [_L, _I, _I, _I, _P],
+    "dadd_probe": [ctypes.c_double, _I, _P, _P, _P],
     "levinson_serial": [_P, _P, _P, _P, _L, _I, _P],
     "serial_abs_mean": [_P, _P, _L, _I, _I, _I, _P],
     "chain_predict": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
@@ -171,10 +183,10 @@ def _check(device: torch.device, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, entry=None) -> None:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    fn = _fn(name)
+    fn = _fn(entry or name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -194,9 +206,55 @@ def autocorr_serial(seg: torch.Tensor, nlags: int) -> torch.Tensor:
         return autocorr_serial_ref(seg, nlags)
     out = seg.new_empty(seg.shape[:-1] + (nlags,))
     if out.numel():
-        _launch("autocorr_serial", seg.device, seg.data_ptr(),
-                out.data_ptr(), out.numel() // nlags, ns, nlags)
+        k = _AUTOCORR_K_OVERRIDE
+        if k is None:
+            _launch("autocorr_serial", seg.device, seg.data_ptr(),
+                    out.data_ptr(), out.numel() // nlags, ns, nlags)
+        else:
+            _launch("autocorr_serial", seg.device, seg.data_ptr(),
+                    out.data_ptr(), out.numel() // nlags, ns, nlags, k,
+                    entry="autocorr_serial_k")
     return out
+
+
+_PLAN_KEYS = ("k", "threads", "groups", "tile", "stages", "segs_per_cta",
+              "ctas", "smem_bytes", "ctas_per_sm", "sms")
+
+
+def autocorr_plan(nseg: int, ns: int, nlags: int, k: int | None = None,
+                  device="cuda") -> dict:
+    """How the autocorrelation kernel runs a call shape on the card: chains
+    a thread, threads a CTA, lag groups a segment, tile, ring stages,
+    segments a CTA, CTAs, shared bytes a CTA, CTAs an SM holds at once, and
+    the card's SMs."""
+    out = torch.zeros(len(_PLAN_KEYS), dtype=torch.int64)
+    with torch.cuda.device(torch.device(device)):
+        err = _fn("autocorr_plan")(nseg, ns, nlags, k or 0, out.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"autocorr_plan failed: CUDA error {err}")
+    return dict(zip(_PLAN_KEYS, out.tolist()))
+
+
+def dadd_cycles(device="cuda") -> float:
+    """The card's dependent DADD latency in SM cycles: one warp runs chains
+    of 2^12 and 2^16 dependent __dadd_rn, each timed with clock64; the
+    slope between the two."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    out = torch.empty(32, dtype=_F64, device=device)
+    counts = []
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for n in (1 << 12, 1 << 16):
+            err = _fn("dadd_probe")(1e-300, n, cycles.data_ptr(),
+                                    out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"dadd_probe failed: CUDA error {err}")
+            counts.append((n, int(cycles.item())))
+    (n1, c1), (n2, c2) = counts
+    return (c2 - c1) / (n2 - n1)
 
 
 def levinson_serial(ac: torch.Tensor, order: int):

@@ -140,19 +140,106 @@ def _segments(rows, units, ns, seed):
     return torch.from_numpy(seg).cuda()
 
 
-# odd and even lengths, lags 1..129, nlags == ns; 13 rows is not a multiple
-# of the kernels' 128-thread blocks
-@pytest.mark.parametrize("rows,units,ns,nlags", [
-    (13, 1, 10240, 129), (5, 2, 81, 9), (3, 4, 64, 1), (7, 3, 130, 129),
-    (2, 1, 16, 16), (13, 128, 80, 2)])
-def test_autocorr_kernel_matches_plain_version(rows, units, ns, nlags):
-    _require_card()
-    seg = _segments(rows, units, ns, rows + ns + nlags)
+# odd and even lengths (odd rows stage with cp.async, even ones with TMA
+# bulk copies), lags 1..129, nlags == ns, nlags == 1, nlags not a multiple
+# of the lags a thread, rows shorter than the window a tile reaches past
+# its end, and segment counts that no CTA size divides
+_AC_EDGES = [(13, 1, 10240, 129), (5, 2, 81, 9), (3, 4, 64, 1),
+             (7, 3, 130, 129), (2, 1, 16, 16), (13, 128, 80, 2),
+             (5, 1, 6, 6), (3, 2, 10, 7), (4, 1, 50, 7), (131, 1, 80, 2),
+             (131, 1, 641, 9), (3, 1, 23, 20), (2, 1, 2049, 129)]
+
+
+@pytest.fixture(params=[None, 1, 2, 4], ids=["auto", "k1", "k2", "k4"])
+def lags_per_thread(request, monkeypatch):
+    """The autocorrelation kernel's lags a thread: its own choice, or each
+    of its choices forced."""
+    monkeypatch.setattr(ES, "_AUTOCORR_K_OVERRIDE", request.param)
+    return request.param
+
+
+def _check_autocorr(seg, nlags):
     before = ES.KERNEL_LAUNCHES["autocorr_serial"]
     got = ES.autocorr_serial(seg, nlags)
     torch.cuda.synchronize()
     assert ES.KERNEL_LAUNCHES["autocorr_serial"] == before + 1
     assert torch.equal(_bits(got), _bits(ES.autocorr_serial_ref(seg, nlags)))
+
+
+@pytest.mark.parametrize("rows,units,ns,nlags", _AC_EDGES)
+def test_autocorr_kernel_matches_plain_version(rows, units, ns, nlags,
+                                               lags_per_thread):
+    _require_card()
+    _check_autocorr(_segments(rows, units, ns, rows + ns + nlags), nlags)
+
+
+@pytest.mark.parametrize("nlags", [9, 129])
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_autocorr_kernel_tile_edges(nlags, extra, lags_per_thread):
+    """Rows one sample short of, at and one past three tiles of the ring
+    (the tile of the kernel's plan for these segments)."""
+    _require_card()
+    tile = ES.autocorr_plan(13, 10240, nlags, lags_per_thread)["tile"]
+    ns = 3 * tile + extra
+    plan = ES.autocorr_plan(13, ns, nlags, lags_per_thread)
+    assert plan["tile"] == tile and plan["stages"] == 2
+    _check_autocorr(_segments(13, 1, ns, ns + nlags), nlags)
+
+
+def _preset7_calls():
+    """(units, ns, nlags) of every autocorr_serial call of a preset-7 fit
+    (layers 4, 128, 16; block 10240)."""
+    calls = []
+    for order in (4, 128, 16):
+        u = 1
+        while u <= order:
+            calls.append((u, 10240 // u, order // u + 1))
+            u *= 2
+    return calls
+
+
+@pytest.mark.parametrize("units,ns,nlags", _preset7_calls())
+def test_autocorr_kernel_preset7_calls(units, ns, nlags):
+    """Every call shape of a preset-7 fit chunk, at 13 rows of 4 ridge
+    terms."""
+    _require_card()
+    _check_autocorr(_segments(13 * 4, units, ns, units), nlags)
+
+
+@pytest.mark.parametrize("ns,nlags", [(80, 2), (641, 9), (2048, 129)])
+def test_autocorr_kernel_special_values(ns, nlags, lags_per_thread):
+    """NaN, +-Inf, -0.0 and subnormal samples: NaN products (the shield's
+    rerun), 0 * Inf, Inf - Inf sums, signed zeros, subnormal products."""
+    _require_card()
+    seg = _segments(6, 2, ns, ns + nlags)
+    seg[1, 0, 3] = float("nan")
+    seg[1, 1, ns // 2] = float("inf")
+    seg[2, 0, ::2] = float("inf")
+    seg[2, 0, 1::2] = 0.0
+    seg[2, 1, ::5] = -float("inf")
+    seg[3, 0] = -0.0
+    seg[3, 1, 1::3] = -0.0
+    seg[4] *= 2.0 ** -1030
+    seg[5, 0] *= 2.0 ** -530
+    _check_autocorr(seg, nlags)
+
+
+def test_autocorr_kernel_unaligned_rows(lags_per_thread):
+    """Rows that start 8 bytes past a 16-byte boundary stage with
+    cp.async."""
+    _require_card()
+    seg = _segments(9, 1, 1000, 3)
+    flat = torch.empty(seg.numel() + 1, dtype=seg.dtype, device="cuda")
+    shifted = flat[1:].view(seg.shape)
+    shifted.copy_(seg)
+    assert shifted.data_ptr() % 16 == 8
+    _check_autocorr(shifted, 65)
+
+
+def test_dadd_probe_measures_a_latency():
+    _require_card()
+    cycles = ES.dadd_cycles()
+    assert 2.0 < cycles < 64.0
 
 
 @pytest.mark.parametrize("order", [1, 2, 31, 32, 33, 64, 128])

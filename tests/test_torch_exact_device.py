@@ -172,16 +172,80 @@ def test_fast_mode_decisions_match_strict():
 # -- the serial building blocks (the kernels' plain versions) ----------------
 
 
-@pytest.mark.parametrize("ns,nlags", [(64, 1), (64, 33), (81, 9), (2048, 3),
-                                      (130, 129), (16, 16)])
-def test_autocorr_serial_bit_equal_to_jax(ns, nlags):
-    """Odd and even lengths, one lag up to 129 lags, nlags == ns."""
+def _special_segments(kind, ns, rng):
+    """[4, 2, ns] segments for the edge values of the NaN shield (`mulsh`):
+    NaN and +-Inf samples (NaN products, 0 * Inf, and Inf - Inf sums),
+    -0.0 and +0.0 runs, or subnormals beside tiny normals. XLA:CPU runs
+    with subnormals flushed to zero, so the subnormal case keeps every
+    product that meets a subnormal below the subnormal range, where IEEE
+    rounding and the flush agree (+-0.0)."""
+    seg = rng.normal(0, 0.3, (4, 2, ns))
+    if kind == "nonfinite":
+        seg[0, 0, 3] = np.nan
+        seg[0, 1, 5] = np.inf
+        seg[1, 0, [2, 9]] = [np.inf, -np.inf]
+        seg[1, 1, :] = np.nan
+        seg[2, 0, ::2] = np.inf
+        seg[2, 0, 1::2] = 0.0
+        seg[3, 1, ns // 2] = -np.inf
+    elif kind == "signed_zero":
+        seg[0, 0] = -0.0
+        seg[1, 0, ::3] = -0.0
+        seg[1, 1, 1::2] = 0.0
+        seg[2, 1] = np.where(rng.random(ns) < 0.5, -0.0, 0.0)
+    else:  # subnormal
+        tiny = rng.normal(0, 1e-22, (4, 2, ns))
+        sub = rng.uniform(-1.0, 1.0, (4, 2, ns)) * 2.0 ** -1030
+        seg = np.where(rng.random((4, 2, ns)) < 0.5, sub, tiny)
+        seg[3, 0] = sub[3, 0]
+    return seg
+
+
+@pytest.mark.parametrize("ns,nlags,special", [
+    pytest.param(64, 1, None, id="64-1"),
+    pytest.param(64, 33, None, id="64-33"),
+    pytest.param(81, 9, None, id="81-9"),
+    pytest.param(2048, 3, None, id="2048-3"),
+    pytest.param(130, 129, None, id="130-129"),
+    pytest.param(16, 16, None, id="16-16"),
+    pytest.param(37, 9, "nonfinite", id="37-9-nonfinite"),
+    pytest.param(16, 16, "nonfinite", id="16-16-nonfinite"),
+    pytest.param(37, 9, "signed_zero", id="37-9-signed_zero"),
+    pytest.param(37, 9, "subnormal", id="37-9-subnormal"),
+])
+def test_autocorr_serial_bit_equal_to_jax(ns, nlags, special):
+    """Odd and even lengths, one lag up to 129 lags, nlags == ns; NaN,
+    +-Inf, -0.0 and subnormal samples."""
     rng = np.random.default_rng(ns + nlags)
-    seg = rng.normal(0, 0.3, (3, 2, ns))
-    seg[1, 0] = 0.0
+    if special is None:
+        seg = rng.normal(0, 0.3, (3, 2, ns))
+        seg[1, 0] = 0.0
+    else:
+        seg = _special_segments(special, ns, rng)
     want = np.asarray(J._autocorr_serial(jnp.asarray(seg), nlags))
     got = S.autocorr_serial(torch.from_numpy(seg), nlags)
     assert _bits_equal(got.numpy(), want)
+
+
+def test_autocorr_serial_keeps_subnormals_like_the_host_oracle():
+    """Subnormal samples and products, which XLA:CPU flushes to zero: the
+    plain version keeps them as the JAX package's host oracle does
+    (linne_tpu.native.exact_autocorr, the reference C encoder's serial
+    sum), bit for bit."""
+    from linne_tpu import native
+
+    rng = np.random.default_rng(7)
+    ns, nlags = 53, 9
+    seg = np.concatenate([
+        rng.normal(0, 1, (2, ns)) * 2.0 ** -1040,  # subnormal samples
+        rng.normal(0, 1, (2, ns)) * 2.0 ** -530,   # subnormal products
+        rng.normal(0, 1, (2, ns)) * 2.0 ** -1000,  # normal beside subnormal
+    ])
+    seg[4, ::2] *= 2.0 ** -40
+    got = S.autocorr_serial(torch.from_numpy(seg), nlags).numpy()
+    want = np.stack([native.exact_autocorr(row, nlags) for row in seg])
+    assert np.any((want != 0) & (np.abs(want) < np.finfo(np.float64).tiny))
+    assert _bits_equal(got, want)
 
 
 def _ac_rows(order, seed):
