@@ -2,26 +2,29 @@
 """Time the port on one CUDA card, to compare two checkouts of the
 repository within one machine.
 
-    python3 chip_pairs.py ROOT LABEL [REPS] [--exact | --autocorr]
+    python3 chip_pairs.py ROOT LABEL [REPS] [--exact | --kernel NAME]
 
 Imports linne_tpu_torch from the checkout at ROOT, encodes the seeded
 4 x 30 s stereo corpus of chip_smoke.py (preset 7, block 10240) with
 TorchEncoder.encode_many and decodes it with TorchDecoder.decode_many, REPS
 times (default 3) after one warm-up round, with the card synchronised
 around each call, and checks every decode lossless. With --exact it also
-times exact_serial.autocorr_serial over the 16 call shapes of one preset-7
-fit chunk (512 row-terms; seeded inputs built here, so every checkout sees
-the same; CUDA events, the median of 5 runs of the 16 calls) and
+times each exact_serial kernel over its calls in one preset-7 fit chunk
+(512 row-terms; seeded inputs built here, so every checkout sees the same;
+CUDA events, 5 runs of the chunk's calls) and
 DeviceExactEncoder.encode_many on the corpus, REPS times after a warm-up,
 each run's streams checked against the host oracle's
 (ParallelExactEncoder). Prints one JSON line: {"label", "encode_s": [...],
 "decode_s": [...], "seconds_of_audio", "card"}, with --exact also
-"autocorr_chunk_ms" (the 5 runs) and "exact_s": [...]. With --autocorr it
-times only autocorr_serial: "autocorr_chunk_ms", "autocorr_call_ms" (each
-call shape alone, [nseg, ns, nlags, median ms of 7]) and "autocorr_digest"
-(a hash of the 16 outputs, equal for checkouts that give the same bits).
-Run it for the two checkouts in alternating turns (A B B A A B) in one
-call, so both see the same card and host.
+"<kernel>_chunk_ms" (the 5 runs) for autocorr, levinson, abs_mean and
+chain_predict, and "exact_s": [...]. With --kernel NAME (autocorr_serial,
+levinson_serial, serial_abs_mean or chain_predict; --autocorr is
+--kernel autocorr_serial) it times only that kernel: "<kernel>_chunk_ms",
+"<kernel>_call_ms" (each call alone, [argument shapes, median ms of 7])
+and "<kernel>_digest" (a hash of the chunk's outputs, equal for
+checkouts that give the same bits). Run it for the two checkouts in
+alternating turns (A B B A A B) in one call, so both see the same card
+and host.
 """
 
 from __future__ import annotations
@@ -74,25 +77,65 @@ def preset7_autocorr_calls():
     return calls
 
 
-def autocorr_chunk_calls(torch):
-    """The 16 (segments, nlags) calls of a chunk on the card, all views of
-    512 seeded noise-plus-tone rows of one block."""
+KERNELS = ("autocorr_serial", "levinson_serial", "serial_abs_mean",
+           "chain_predict")
+# the keys of a kernel's numbers in the JSON line
+SHORT = {"autocorr_serial": "autocorr", "levinson_serial": "levinson",
+         "serial_abs_mean": "abs_mean", "chain_predict": "chain_predict"}
+
+
+def chunk_calls(torch, ES, name: str):
+    """The argument tuples of a kernel's calls in one preset-7 fit chunk,
+    on the card, built from 512 seeded noise-plus-tone rows of one block:
+    autocorr_serial's 16 (segments, nlags) views of them; levinson_serial's
+    16 (ac, order) from those autocorrelations (this checkout's
+    autocorr_serial, held bit-equal to its plain version by its tests) with
+    a ridge on r0; serial_abs_mean's [512, L, 10240] from 1 for L = 3, 8, 5
+    unit levels and [512, 10240] from 0; chain_predict's 16 (rows, params
+    [512, units, order / units]) with seeded taps."""
     rng = np.random.default_rng(8)
     t = np.arange(SPB)
     rows = (rng.normal(0, 0.05, (512, SPB))
             + 0.4 * np.sin(2 * np.pi * rng.uniform(0.01, 0.2, (512, 1)) * t))
     base = torch.from_numpy(rows).cuda()
-    return [(base.reshape(nseg, ns), nlags)
-            for nseg, ns, nlags in preset7_autocorr_calls()]
+    shapes = preset7_autocorr_calls()
+    if name == "autocorr_serial":
+        return [(base.reshape(nseg, ns), nlags) for nseg, ns, nlags in shapes]
+    if name == "levinson_serial":
+        calls = []
+        for nseg, ns, nlags in shapes:
+            ac = ES.autocorr_serial(base.reshape(nseg, ns), nlags)
+            ac[:, 0] *= 1.0 + 1e-3
+            calls.append((ac, nlags - 1))
+        return calls
+    if name == "serial_abs_mean":
+        calls = []
+        for levels in (3, 8, 5):
+            scale = torch.linspace(0.5, 1.5, levels, dtype=torch.float64,
+                                   device="cuda")
+            calls.append(((base[:, None, :] * scale[:, None]).contiguous(),
+                          1, SPB))
+        return calls + [(base, 0, SPB)]
+    calls = []
+    for nseg, ns, nlags in shapes:
+        units = nseg // 512
+        prm = rng.normal(0, 0.4 / (nlags - 1), (512, units, nlags - 1))
+        calls.append((base, torch.from_numpy(prm).cuda()))
+    return calls
 
 
-def autocorr_chunk_ms(torch, ES, runs: int = 5):
-    """CUDA-event milliseconds of the 16 autocorr_serial calls of a chunk,
-    once per run; device time (the calls are enqueued while the card is
-    still busy)."""
-    calls = autocorr_chunk_calls(torch)
-    for seg, nlags in calls:  # warm-up: builds and loads the kernel
-        ES.autocorr_serial(seg, nlags)
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def chunk_ms(torch, ES, name: str, runs: int = 5):
+    """CUDA-event milliseconds of a kernel's calls in one chunk, once per
+    run; device time (the calls are enqueued while the card is still
+    busy)."""
+    calls = chunk_calls(torch, ES, name)
+    kernel = getattr(ES, name)
+    for args in calls:  # warm-up: builds and loads the kernel
+        kernel(*args)
     torch.cuda.synchronize()
     out = []
     for _ in range(runs):
@@ -101,34 +144,49 @@ def autocorr_chunk_ms(torch, ES, runs: int = 5):
         # the calls queue behind a ~5 ms spin of the card: device time only
         torch.cuda._sleep(10_000_000)
         start.record()
-        for seg, nlags in calls:
-            ES.autocorr_serial(seg, nlags)
+        for args in calls:
+            kernel(*args)
         end.record()
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end))
     return out
 
 
-def autocorr_call_ms(torch, ES, runs: int = 7):
-    """Each call of the chunk alone: [nseg, ns, nlags, median CUDA-event
+def call_ms(torch, ES, name: str, runs: int = 7):
+    """Each call of the chunk alone: [argument shapes, median CUDA-event
     ms of runs, each queued behind a ~1 ms spin], and a hash of the
     outputs."""
     digest = hashlib.sha256()
+    kernel = getattr(ES, name)
     out = []
-    for seg, nlags in autocorr_chunk_calls(torch):
-        digest.update(ES.autocorr_serial(seg, nlags).cpu().numpy().tobytes())
+    for args in chunk_calls(torch, ES, name):
+        for o in _outputs(kernel(*args)):
+            digest.update(o.cpu().numpy().tobytes())
         ms = []
         for _ in range(runs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(2_000_000)
             start.record()
-            ES.autocorr_serial(seg, nlags)
+            kernel(*args)
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end))
-        out.append([seg.shape[0], seg.shape[1], nlags, float(np.median(ms))])
+        shape = [list(a.shape) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        out.append([shape, float(np.median(ms))])
     return out, digest.hexdigest()[:16]
+
+
+def kernel_times(torch, name: str) -> dict:
+    """A kernel's chunk (5 runs), each call alone and the output hash."""
+    from linne_tpu_torch.ops import exact_serial as ES
+
+    short = SHORT[name]
+    times = {f"{short}_chunk_ms": chunk_ms(torch, ES, name)}
+    times[f"{short}_call_ms"], times[f"{short}_digest"] = call_ms(
+        torch, ES, name)
+    return times
 
 
 def exact_runs(torch, param, chans, lengths, reps: int):
@@ -193,16 +251,27 @@ def corpus_runs(torch, label: str, reps: int, exact: bool) -> dict:
     if exact:
         from linne_tpu_torch.ops import exact_serial as ES
 
-        times["autocorr_chunk_ms"] = autocorr_chunk_ms(torch, ES)
+        for name in KERNELS:
+            times[f"{SHORT[name]}_chunk_ms"] = chunk_ms(torch, ES, name)
         times["exact_s"] = exact_runs(torch, param, chans, lengths, reps)
     times["seconds_of_audio"] = sum(lengths) / RATE
     return times
 
 
 def main() -> int:
-    flags = ("--exact", "--autocorr")
-    args = [a for a in sys.argv[1:] if a not in flags]
-    exact = "--exact" in sys.argv[1:]
+    argv = sys.argv[1:]
+    kernel = None
+    if "--kernel" in argv:
+        i = argv.index("--kernel")
+        kernel = argv[i + 1]
+        del argv[i:i + 2]
+    if "--autocorr" in argv:  # the older spelling of --kernel autocorr_serial
+        argv.remove("--autocorr")
+        kernel = "autocorr_serial"
+    if kernel is not None and kernel not in KERNELS:
+        raise SystemExit(f"chip_pairs: --kernel takes one of {KERNELS}")
+    exact = "--exact" in argv
+    args = [a for a in argv if a != "--exact"]
     root = pathlib.Path(args[0]).resolve()
     label = args[1]
     reps = int(args[2]) if len(args) > 2 else 3
@@ -211,12 +280,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_pairs: this script needs a CUDA card")
-    if "--autocorr" in sys.argv[1:]:
-        from linne_tpu_torch.ops import exact_serial as ES
-
-        times = {"autocorr_chunk_ms": autocorr_chunk_ms(torch, ES)}
-        times["autocorr_call_ms"], times["autocorr_digest"] = (
-            autocorr_call_ms(torch, ES))
+    if kernel is not None:
+        times = kernel_times(torch, kernel)
     else:
         times = corpus_runs(torch, label, reps, exact)
     card = subprocess.run(

@@ -35,6 +35,13 @@ Phases (any failure raises and the script exits non-zero):
      autocorr_serial with each choice of lags a thread at its tile, ring,
      staging and lag-group edges, with NaN, +-Inf, -0.0 and subnormal
      samples, and at every call shape of a preset-7 fit at 13 rows;
+     levinson_serial on both paths of its plan (one thread a segment to
+     order 32, one warp above) at orders around each template and warp
+     slot, every preset-7 call shape, and rows with NaN and +-Inf lags, ek
+     reaching 0 and a tone; serial_abs_mean in each rows-a-CTA bucket,
+     around three tiles of its ring, from start 0 and 1, with start == n,
+     n < row length, rows off a 16-byte boundary, and NaN, +-Inf, -0.0 and
+     subnormal samples; one launch a call; the count per kernel;
   9. exact-device path: DeviceExactEncoder.encode_many on the corpus of
      phase 4; every stream byte-identical to the host oracle's
      (ParallelExactEncoder, and ExactEncoder on the first track) and
@@ -44,9 +51,10 @@ Phases (any failure raises and the script exits non-zero):
      with the host share of the quantizer's tap loop and its share of the
      torch ops one chunk dispatches; then every kernel call of one 128-row fit chunk of that corpus,
      recorded, checked bit for bit against the plain version and timed
-     beside its bound and chain bound (at the measured DADD latency), with
-     autocorr_serial's plan per call (lags a thread, CTAs, CTAs and warps
-     an SM holds);
+     beside its bound, chain bound (at the measured DADD latency) and
+     their larger (the call's floor), with the plan of each
+     autocorr_serial, levinson_serial and serial_abs_mean call (lags a
+     thread, path, rows a CTA, CTAs, warps an SM);
  11. -a 2 (preset 7) and -l (preset 1) through DeviceExactEncoder on a
      3-block + tail track, byte-identical to ExactEncoder;
  12. -a 2 and -l on the batched path: TorchEncoder.encode_many on the
@@ -590,40 +598,145 @@ def autocorr_edge_cases():
     return err, n
 
 
+def levinson_rows(nseg, order, seed) -> torch.Tensor:
+    """Autocorrelations of seeded segments after a ridge, on the card; row
+    0 is a zero-signal row (|r0| < FLT_EPSILON), row 3 a tiny one."""
+    seg = seg_inputs(nseg, 1, 4 * order + 16, seed)
+    seg[3 % nseg] *= 1e-5
+    ac = ES.autocorr_serial_ref(seg, order + 1)[:, 0].contiguous()
+    ac[:, 0] *= 1.0 + 1.0 / 512.0
+    return ac
+
+
+def levinson_special(ac: torch.Tensor) -> torch.Tensor:
+    """[8, order + 1] rows at the recursion's edges: a constant signal (ek
+    exactly 0 after the first step, then 0 / -0), a pure tone, a NaN lag,
+    +-Inf lags, r0 = +Inf, a zero row."""
+    order = ac.shape[-1] - 1
+    lags = torch.arange(order + 1, dtype=torch.float64, device=ac.device)
+    ac[1] = 1.0
+    ac[2] = torch.cos(0.3 * lags)
+    ac[3, min(order, 3)] = float("nan")
+    ac[4, 1] = float("inf")
+    ac[5, order] = -float("inf")
+    ac[6, 0] = float("inf")
+    ac[7] = 0.0
+    return ac
+
+
+def levinson_edge_cases() -> list:
+    """(kernel, args) of levinson_serial at the edges of its design: orders
+    around each thread-path template (4, 8, 16, 32) and the warp path's
+    slots (32-lane multiples), on 13 segments; every call shape of a
+    preset-7 fit at 5 rows of `units` segments; the special rows at orders
+    on both paths."""
+    cases = []
+    for order in (1, 2, 3, 4, 5, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+                  96, 97, 127, 128):
+        cases.append(("levinson_serial", (levinson_rows(13, order, order),
+                                          order)))
+    for order in (4, 128, 16):
+        u = 1
+        while u <= order:
+            cases.append(("levinson_serial", (levinson_rows(
+                5 * u, order // u, u), order // u)))
+            u *= 2
+    for order in (2, 8, 31, 33, 128):
+        cases.append(("levinson_serial", (levinson_special(levinson_rows(
+            8, order, 7 * order)), order)))
+    return cases
+
+
+def abs_mean_edge_cases() -> list:
+    """(kernel, args) of serial_abs_mean at the edges of its design: odd
+    and even lengths (rows of odd length alternate on and off a 16-byte
+    boundary), n = 1, start == n; the four call shapes of a preset-7 fit
+    chunk at 3 rows; each rows-a-CTA bucket of the plan over several tiles
+    with n < row_len; rows around three tiles of the ring; NaN, +-Inf, -0.0
+    and subnormal samples; rows that start 8 bytes past a 16-byte
+    boundary."""
+    cases = []
+
+    def add(x, start, n):
+        cases.append(("serial_abs_mean", (x, start, n)))
+
+    for rows, n, start in [(13 * 8, 10240, 1), (3, 77, 0), (130, 2048, 0),
+                           (13, 77, 1), (5, 1, 0), (5, 1, 1), (7, 2, 1),
+                           (4, 16, 16)]:
+        add(seg_inputs(rows, 1, n, n)[:, 0].contiguous(), start, n)
+    for lead, start in (((3, 3), 1), ((3, 8), 1), ((3, 5), 1), ((3,), 0)):
+        x = seg_inputs(int(np.prod(lead)), 1, SPB, len(lead) + start)
+        add(x.reshape(lead + (SPB,)), start, SPB)
+    sms = ES.abs_mean_plan(1, 0, 3001)["sms"]
+    for per_cta in (1, 2, 4, 8, 16, 32):
+        for start in (0, 1):
+            plan = ES.abs_mean_plan(per_cta * sms, start, 3001)
+            require(plan["rows_per_cta"] == per_cta and plan["tiles"] > 1,
+                    f"abs_mean plan {plan} for {per_cta} rows a CTA")
+            add(seg_inputs(per_cta * sms, 1, 3003, per_cta)[:, 0]
+                .contiguous(), start, 3001)
+    for start in (0, 1):
+        tile = ES.abs_mean_plan(13, start, SPB)["tile"]
+        for extra in (-2, -1, 0, 1, 2):
+            n = 3 * tile + start + extra
+            require(ES.abs_mean_plan(13, start, n)["stages"] == 2,
+                    "abs_mean tile edges: two stages")
+            add(seg_inputs(13, 1, n, n)[:, 0].contiguous(), start, n)
+    for n in (77, 2500):
+        x = seg_inputs(6, 1, n, n)[:, 0].contiguous()
+        x[0, 1] = float("nan")
+        x[1, n // 2] = float("inf")
+        x[1, n - 1] = -float("inf")
+        x[2, ::3] = -0.0
+        x[3] = -0.0
+        x[4] *= 2.0 ** -1060
+        x[5, n - 1] = float("nan")
+        add(x, 0, n)
+        add(x, 1, n)
+    for row_len, n, start in ((1000, 1000, 1), (999, 999, 0),
+                              (2600, 2599, 1)):
+        x = seg_inputs(9, 1, row_len, row_len)[:, 0].contiguous()
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        shifted = flat[1:].view(x.shape)
+        shifted.copy_(x)
+        require(shifted.data_ptr() % 16 == 8, "unaligned rows")
+        add(shifted, start, n)
+    return cases
+
+
 def exact_kernel_phase() -> dict:
     """Each exact_serial kernel against its plain version at the edges of
-    its design. Returns the max abs difference per kernel."""
+    its design, one launch a call. Returns the max abs difference per
+    kernel."""
     err = dict.fromkeys(ES.KERNELS, 0.0)
     err["autocorr_serial"], n_autocorr = autocorr_edge_cases()
-    cases = []
-    for order in (1, 2, 31, 32, 33, 64, 128):
-        seg = seg_inputs(13, 1, 4 * order + 16, order)
-        seg[3] *= 1e-5
-        ac = ES.autocorr_serial_ref(seg, order + 1)[:, 0].contiguous()
-        ac[:, 0] *= 1.0 + 1.0 / 512.0
-        cases.append(("levinson_serial", (ac, order)))
-    for rows, n, start in [(13 * 8, 10240, 1), (3, 77, 0), (130, 2048, 0)]:
-        x = seg_inputs(rows, 1, n, n)[:, 0].contiguous()
-        cases.append(("serial_abs_mean", (x, start, n)))
+    cases = levinson_edge_cases() + abs_mean_edge_cases()
     for rows, n, units, npu in [(13, 10240, 1, 128), (5, 384, 4, 8),
                                 (3, 2048, 128, 1), (7, 300, 3, 5)]:
         x = seg_inputs(rows, 1, n, n + npu)[:, 0].contiguous()
         rng = np.random.default_rng(units + npu)
         prm = torch.from_numpy(rng.normal(0, 0.4, (rows, units, npu))).cuda()
         cases.append(("chain_predict", (x, prm)))
+    counts = dict.fromkeys(ES.KERNELS, 0)
     for name, args in cases:
+        before = ES.KERNEL_LAUNCHES[name]
         got = getattr(ES, name)(*args)
         torch.cuda.synchronize()
         shape = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
                       for a in args)
+        require(ES.KERNEL_LAUNCHES[name] == before + 1,
+                f"{name} at {shape}: not one launch")
         err[name] = max(err[name],
                         check_exact(name, got, _PLAIN[name](*args), shape))
+        counts[name] += 1
     first_levinson = next(a for n, a in cases if n == "levinson_serial")
     zero_case = ES.levinson_serial(*first_levinson)[2]
     require(bool(zero_case[0]) and not bool(zero_case[1]),
             "the zero-signal row did not take the early-out")
+    counts["autocorr_serial"] = n_autocorr
     print(f"exact_serial kernels bit-equal to their plain versions at "
-          f"{len(cases) + n_autocorr} edge cases")
+          f"{sum(counts.values())} edge cases "
+          f"({', '.join(f'{k} {v}' for k, v in counts.items())})")
     return err
 
 
@@ -702,7 +815,8 @@ def exact_profile_phase(chans, lengths, unprofiled_wall) -> None:
         enc.encode_many(chans, lengths)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    names = {"autocorr_kernel": 0.0, "levinson_kernel": 0.0,
+    # levinson_ matches levinson_thread_kernel<P> and levinson_warp_kernel
+    names = {"autocorr_kernel": 0.0, "levinson_": 0.0,
              "abs_mean_kernel": 0.0, "chain_predict_kernel": 0.0}
     copy_us = other_us = 0.0
     n_other = 0
@@ -723,7 +837,8 @@ def exact_profile_phase(chans, lengths, unprofiled_wall) -> None:
         print("exact-device profile: no device time in the trace "
               "(not measured)")
         return
-    split = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in names.items())
+    split = ", ".join(f"{k}{'*' if k.endswith('_') else ''} {v / 1e3:.3f} ms"
+                      for k, v in names.items())
     print(f"exact-device profile: wall {wall_ms:.1f} ms profiled "
           f"({1e3 * unprofiled_wall:.1f} ms unprofiled), device "
           f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f} % busy): "
@@ -733,10 +848,11 @@ def exact_profile_phase(chans, lengths, unprofiled_wall) -> None:
 
 def exact_bound(name: str, args, clock_hz: float,
                 dadd_cycles: float = DADD_CYCLES):
-    """(bound ms, "operations" | "bytes", chain ms) of one kernel call:
-    FP64 operations over the issue rate against bytes over the memory
-    rate, and the call's longest dependent chain of additions at
-    dadd_cycles each."""
+    """(bound ms, "operations" | "bytes", chain ms, floor ms) of one kernel
+    call: FP64 operations over the issue rate against bytes over the
+    memory rate, the call's longest dependent chain of additions at
+    dadd_cycles each, and the larger of the two (the least time the call
+    can take)."""
     if name == "autocorr_serial":
         seg, nlags = args
         ns = seg.shape[-1]
@@ -765,8 +881,10 @@ def exact_bound(name: str, args, clock_hz: float,
     t_bytes = nbytes / HBM_BYTES_PER_S
     chain_ms = 1e3 * chain * dadd_cycles / clock_hz
     if t_ops >= t_bytes:
-        return 1e3 * t_ops, "operations", chain_ms
-    return 1e3 * t_bytes, "bytes", chain_ms
+        bound_ms, by = 1e3 * t_ops, "operations"
+    else:
+        bound_ms, by = 1e3 * t_bytes, "bytes"
+    return bound_ms, by, chain_ms, max(bound_ms, chain_ms)
 
 
 def fast_version(name: str, args):
@@ -907,10 +1025,13 @@ def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
     torch.cuda.synchronize()
 
     out = {}
+    call_lines = {"autocorr_serial": autocorr_call_line,
+                  "levinson_serial": levinson_call_line,
+                  "serial_abs_mean": abs_mean_call_line}
     for name in ES.KERNELS:
         r = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
              "bound_ms": 0.0, "chain_ms": 0.0, "chain8_ms": 0.0,
-             "fast_ms": 0.0, "calls": len(calls[name])}
+             "floor_ms": 0.0, "fast_ms": 0.0, "calls": len(calls[name])}
         by = {"operations": 0.0, "bytes": 0.0}
         for args in calls[name]:
             kernel = getattr(ES, name)
@@ -928,13 +1049,15 @@ def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], check_exact(
                 name, kernel(*args), want, shape))
             r["fast_ms"] += cuda_ms(lambda: fast_version(name, args), reps=1)
-            b_ms, b_by, c_ms = exact_bound(name, args, clock_hz, dadd_cycles)
+            b_ms, b_by, c_ms, f_ms = exact_bound(name, args, clock_hz,
+                                                 dadd_cycles)
             r["bound_ms"] += b_ms
             r["chain_ms"] += c_ms
+            r["floor_ms"] += f_ms
             r["chain8_ms"] += exact_bound(name, args, clock_hz)[2]
             by[b_by] += b_ms
-            if name == "autocorr_serial":
-                autocorr_call_line(args, call_ms, b_ms, b_by, c_ms)
+            if name in call_lines:
+                call_lines[name](args, call_ms, b_ms, b_by, c_ms)
         r["bound_by"] = max(by, key=by.get)
         out[name] = r
         print(f"exact-device calls {name}: {r['calls']} calls in one "
@@ -944,7 +1067,9 @@ def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
               f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of "
               f"it reached), chain bound {r['chain_ms']:.4f} ms at the "
               f"measured {dadd_cycles:.2f} cycles a DADD "
-              f"({r['chain8_ms']:.4f} ms at {DADD_CYCLES})")
+              f"({r['chain8_ms']:.4f} ms at {DADD_CYCLES}); the calls' "
+              f"floors (the larger of the two a call) {r['floor_ms']:.4f} ms, "
+              f"{100 * r['floor_ms'] / r['ms']:.1f} % of it reached")
     return out
 
 
@@ -976,6 +1101,41 @@ def autocorr_call_line(args, ms, bound_ms, bound_by, chain_ms) -> None:
           f"({bound_by}), chain bound {chain_ms:.4f} ms; K "
           f"{'/'.join(map(str, ES.AUTOCORR_K_CHOICES))} forced: "
           f"{'/'.join(forced)} ms")
+
+
+def levinson_call_line(args, ms, bound_ms, bound_by, chain_ms) -> None:
+    """One levinson_serial call of the chunk: its shape, the kernel's plan
+    (one warp or one thread a segment, the thread path's template order,
+    CTA size, CTAs, warps an SM), its time beside its bound and chain
+    bound."""
+    ac, order = args
+    nseg = ac.numel() // (order + 1)
+    p = ES.levinson_plan(nseg, order)
+    warps = p["threads"] // 32
+    resident = min(p["ctas"], p["ctas_per_sm"] * p["sms"])
+    path = ("one warp a segment" if p["warp"] else
+            f"one thread a segment (template order {p['max_order']})")
+    print(f"  levinson_serial [{nseg}] x order {order}: {path}, "
+          f"{p['threads']} threads x {p['ctas']} CTAs, {p['smem_bytes']} B "
+          f"shared, {resident * warps / p['sms']:.2f} warps an SM in this "
+          f"call; {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), chain "
+          f"bound {chain_ms:.4f} ms")
+
+
+def abs_mean_call_line(args, ms, bound_ms, bound_by, chain_ms) -> None:
+    """One serial_abs_mean call of the chunk: its shape, the kernel's plan
+    (rows a CTA, tile, stages, CTAs, warps an SM), its time beside its
+    bound and chain bound."""
+    rows, start, n = args
+    nrows = rows.numel() // rows.shape[-1]
+    p = ES.abs_mean_plan(nrows, start, n)
+    resident = min(p["ctas"], p["ctas_per_sm"] * p["sms"])
+    print(f"  serial_abs_mean {list(rows.shape)} from {start}: "
+          f"{p['rows_per_cta']} rows a CTA (one warp) x {p['ctas']} CTAs, "
+          f"tile {p['tile']} x {p['stages']} stages ({p['tiles']} tiles a "
+          f"row), {p['smem_bytes']} B shared, {resident / p['sms']:.2f} "
+          f"warps an SM in this call; {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), chain bound {chain_ms:.4f} ms")
 
 
 def exact_flags_phase() -> None:

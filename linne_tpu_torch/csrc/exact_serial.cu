@@ -11,10 +11,12 @@
 //                     i = 0, 1, ... from +0.0. Staged and blocked (below).
 //   levinson_serial   replaces _levinson_serial (:203) and its scan tail
 //                     _levinson_scan_tail (:247): the Levinson-Durbin
-//                     recursion op for op; one thread per segment, a[] in
-//                     local memory.
+//                     recursion op for op; one thread a segment with a[]
+//                     in registers up to order 32, one warp a segment
+//                     above (below).
 //   serial_abs_mean   replaces _serial_abs_mean (:378):
-//                     sum_{t=start}^{n-1} |x[t]| / n; one thread per row.
+//                     sum_{t=start}^{n-1} |x[t]| / n; one warp runs up to
+//                     32 rows staged through shared-memory tiles (below).
 //   chain_predict     replaces _chain_predict (:349): per output sample a
 //                     serial chain over the unit's taps, with and without
 //                     the sample itself as the chain's start; one thread
@@ -56,9 +58,14 @@
 // small beside that (the segments are read once: 42 MB, 0.013 ms at
 // 3.35 TB/s). Beside the issue bound stands each chain's latency: 10,240
 // dependent adds for the longest autocorrelation and abs-mean chains,
-// about 8,128 dependent multiply-add steps for the order-128 recursion.
+// 8,765 dependent steps for the order-128 recursion (k + 5 at step k).
+// serial_abs_mean is bytes-bound where its rows fill the card (a chunk's
+// 4,096-row call: 336 MB, 0.100 ms at 3.35 TB/s) and chain-bound where
+// they do not (the 512-row call: 10,240 adds, ~0.042 ms at 8.19 cycles
+// and 1.98 GHz); levinson_serial is chain-bound at every order.
 // dadd_probe_kernel measures a dependent add's latency on the card.
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -407,62 +414,363 @@ __global__ void __launch_bounds__(kAcThreads)
   }
 }
 
-// The recursion of linne_tpu/ops/exact_device.py:203-244 on one segment.
+// -- levinson_serial ---------------------------------------------------------
+//
+// The recursion of linne_tpu/ops/exact_device.py:203-244 on one segment:
+//   a[1] = -r1 / r0; parcor[0] = r1 / r0; ek = r0 + r1 * a[1];
+//   step k = 1 .. order - 1:
+//     g = sum_{i=0}^{k} a[i] * r[k + 1 - i], serial in i from +0.0;
+//     gamma = g / -ek; ek = ek * (1 - gamma * gamma);
+//     a[i] = a[i] + gamma * a[k + 1 - i] for 1 <= i <= k + 1, all from the
+//     old a[] (a[k + 1] is +0.0 and a[0] is 1.0 there, so a[k + 1] becomes
+//     0.0 + gamma * 1.0); parcor[k] = -gamma.
 // a[0] stays exactly 1.0 (1.0 + mulsh(gamma, 0.0) == 1.0), so it is never
-// rewritten, and the unrolled graph's literal 1.0 in v[k + 1] is used.
+// rewritten. Every product is mulsh, as in the JAX graph.
+//
+// Two paths by order (lv_plan). Up to kLvThreadMax, one thread a segment
+// with a[] and r[] in registers: a template on the largest order it takes,
+// loops fully unrolled and guarded by the call's order, so that no array
+// is indexed at run time (an indexed a[] lives in local memory, and every
+// term of the chain then goes through L1). Above it, one warp a segment:
+// a[] and r[] in shared memory, lane l owning a[l], a[l + 32], ...; a
+// step's k + 1 products are formed by their owners in parallel, then every
+// lane runs the serial g chain over them from broadcast shared memory (no
+// value is sent back), and the update is parallel over i. a[] and the
+// products are double-buffered by step, so one __syncwarp a step orders
+// every write before the next step's reads. Order 32 stays on the thread
+// path: on an H100 the warp path took 0.0268 ms for the chunk's order-32
+// call against the thread path's 0.0156 ms, and equal times at order 8.
+
+constexpr double kFltEpsilon = 1.1920928955078125e-07;
+constexpr int kLvThreadMax = 32;  // the largest order of the thread path
+constexpr int kLvWarps = 4;       // the most warps (segments) a CTA
+constexpr int kLvSlots = (kMaxOrder + 2 + 31) / 32;  // a[] entries a lane
+constexpr int kLvBlock = 16;  // lv_chain's adds a block
+// doubles of a product buffer: lv_chain reads a block past the chain's
+// length rounded up to a block
+constexpr int kLvProd = kMaxOrder + 2 * kLvBlock + 8;
+constexpr int kLvLen = kMaxOrder + 2;
+
+template <int P>
 __global__ void __launch_bounds__(kThreads)
-    levinson_kernel(const double* __restrict__ ac, double* __restrict__ coef,
-                    double* __restrict__ parcor, uint8_t* __restrict__ zc,
-                    int64_t nseg, int order) {
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    levinson_thread_kernel(const double* __restrict__ ac,
+                           double* __restrict__ coef,
+                           double* __restrict__ parcor,
+                           uint8_t* __restrict__ zc, int64_t nseg,
+                           int order) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= nseg) return;
   const double* r = ac + s * (order + 1);
+  double rr[P + 1];
+#pragma unroll
+  for (int i = 0; i <= P; ++i) rr[i] = i <= order ? __ldg(r + i) : 0.0;
+  double a[P + 2];
+  a[0] = 1.0;
+#pragma unroll
+  for (int i = 1; i < P + 2; ++i) a[i] = 0.0;
   double* c = coef + s * order;
   double* pc = parcor + s * order;
-  const double r0 = r[0];
-  const bool zero = fabs(r0) < static_cast<double>(1.1920928955078125e-07);
-
-  double a[kMaxOrder + 2];
-  a[0] = 1.0;
+  const double r0 = rr[0];
+  const bool zero = fabs(r0) < kFltEpsilon;
   double ek = r0;
-  a[1] = __ddiv_rn(-r[1], r0);
-  pc[0] = __ddiv_rn(r[1], ek);
-  ek = __dadd_rn(ek, mulsh(r[1], a[1]));
-  for (int k = 1; k < order; ++k) {
-    double g = 0.0;
-    for (int i = 0; i <= k; ++i) g = __dadd_rn(g, mulsh(a[i], r[k + 1 - i]));
-    const double gamma = __ddiv_rn(g, -ek);
-    ek = __dmul_rn(ek, __dsub_rn(1.0, mulsh(gamma, gamma)));
-    // a[i] += gamma * a[k + 1 - i] for 1 <= i <= k, all from the old a[];
-    // a[k + 1] = 0.0 + gamma * 1.0
-    a[k + 1] = __dadd_rn(0.0, mulsh(gamma, 1.0));
-    int i = 1;
-    int j = k;
-    for (; i < j; ++i, --j) {
-      const double ai = a[i];
-      const double aj = a[j];
-      a[i] = __dadd_rn(ai, mulsh(gamma, aj));
-      a[j] = __dadd_rn(aj, mulsh(gamma, ai));
+  a[1] = __ddiv_rn(-rr[1], r0);
+  pc[0] = zero ? 0.0 : __ddiv_rn(rr[1], ek);
+  ek = __dadd_rn(ek, mulsh(rr[1], a[1]));
+#pragma unroll
+  for (int k = 1; k < P; ++k) {
+    if (k < order) {
+      double g = 0.0;
+#pragma unroll
+      for (int i = 0; i <= k; ++i) g = __dadd_rn(g, mulsh(a[i], rr[k + 1 - i]));
+      const double gamma = __ddiv_rn(g, -ek);
+      ek = __dmul_rn(ek, __dsub_rn(1.0, mulsh(gamma, gamma)));
+      double b[P + 2];
+#pragma unroll
+      for (int i = 1; i <= k + 1; ++i) {
+        b[i] = __dadd_rn(a[i], mulsh(gamma, a[k + 1 - i]));
+      }
+#pragma unroll
+      for (int i = 1; i <= k + 1; ++i) a[i] = b[i];
+      pc[k] = zero ? 0.0 : -gamma;
     }
-    if (i == j) a[i] = __dadd_rn(a[i], mulsh(gamma, a[i]));
-    pc[k] = -gamma;
   }
-  for (int k = 0; k < order; ++k) c[k] = zero ? 0.0 : a[k + 1];
-  if (zero) {
-    for (int k = 0; k < order; ++k) pc[k] = 0.0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (k < order) c[k] = zero ? 0.0 : a[k + 1];
   }
   zc[s] = zero ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One warp's shared memory: a[] twice (the old and the new by step), the
+// products twice, r[] and the parcor values.
+struct LvWarp {
+  double a[2][kLvLen];
+  double prod[2][kLvProd];
+  double r[kLvLen];
+  double pc[kMaxOrder];
+};
+
+// sum_{i < len} p[i], serial in i from +0.0; p holds +0.0 from len up to
+// len rounded up to kLvBlock, whose adds leave the sum's bits as they are
+// (a sum that starts at +0.0 is never -0.0, and x + +0.0 == x). Blocks of
+// kLvBlock adds with no branch inside, the next block's loads issued
+// before them in the source. On an H100 blocks of 16 ran the order-128
+// call fastest (0.077 ms against 0.081 and 0.080 ms for 8 and 32), yet
+// the chain still takes ~11.7 cycles an add against the DADD's 8.19:
+// ptxas places the loads next to their use whatever the source order.
+__device__ __forceinline__ double lv_chain(const double* p, int len) {
+  constexpr int B = kLvBlock;
+  const int m = (len + B - 1) / B * B;
+  double x[B], y[B];
+  load_run<B, true>(p, x);
+  double g = 0.0;
+  for (int i = 0; i < m; i += B) {
+    load_run<B, true>(p + i + B, y);  // past m on the last turn: unused
+#pragma unroll
+    for (int j = 0; j < B; ++j) g = __dadd_rn(g, x[j]);
+#pragma unroll
+    for (int j = 0; j < B; ++j) x[j] = y[j];
+  }
+  return g;
+}
+
+__global__ void __launch_bounds__(kLvWarps * 32)
+    levinson_warp_kernel(const double* __restrict__ ac,
+                         double* __restrict__ coef,
+                         double* __restrict__ parcor,
+                         uint8_t* __restrict__ zc, int64_t nseg, int order) {
+  extern __shared__ __align__(16) double lv_smem[];
+  const int lane = threadIdx.x & 31;
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (s >= nseg) return;  // the whole warp: only __syncwarp below
+  LvWarp& w = reinterpret_cast<LvWarp*>(lv_smem)[threadIdx.x >> 5];
+  const double* r = ac + s * (order + 1);
+  for (int i = lane; i < kLvProd; i += 32) {
+    if (i < kLvLen) {
+      w.r[i] = i <= order ? __ldg(r + i) : 0.0;
+      w.a[0][i] = 0.0;
+      w.a[1][i] = 0.0;
+    }
+    w.prod[0][i] = 0.0;
+    w.prod[1][i] = 0.0;
+  }
+  __syncwarp();
+  const double r0 = w.r[0];
+  const double r1 = w.r[1];
+  const bool zero = fabs(r0) < kFltEpsilon;
+  const double a1 = __ddiv_rn(-r1, r0);
+  const double pc0 = __ddiv_rn(r1, r0);
+  double ek = __dadd_rn(r0, mulsh(r1, a1));
+  // own[m] is a[lane + 32 m]
+  double own[kLvSlots];
+#pragma unroll
+  for (int m = 0; m < kLvSlots; ++m) {
+    const int i = lane + 32 * m;
+    own[m] = i == 0 ? 1.0 : i == 1 ? a1 : 0.0;
+    if (i <= 1) {
+      w.a[0][i] = own[m];
+      if (order > 1) w.prod[0][i] = mulsh(own[m], w.r[2 - i]);
+    }
+  }
+  if (lane == 0) w.pc[0] = pc0;
+  __syncwarp();
+  for (int k = 1; k < order; ++k) {
+    const int cur = (k - 1) & 1;
+    const double* old = w.a[cur];
+    double* fresh = w.a[cur ^ 1];
+    double* prod = w.prod[cur ^ 1];
+    const double g = lv_chain(w.prod[cur], k + 1);
+    // the update's operands, read while the divide runs: every slot's
+    // loads precede every store (the compiler moves no load past a store
+    // to shared memory). A slot past k + 1 reads clamped indices and stores
+    // into an entry no step reads (a[kLvLen - 1], prod[kLvProd - 1]).
+    double av[kLvSlots], rv[kLvSlots];
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) {
+      const int i = lane + 32 * m;
+      const bool live = i <= k + 1;
+      av[m] = old[live ? k + 1 - i : 0];
+      rv[m] = w.r[live ? k + 2 - i : 0];
+    }
+    const double gamma = __ddiv_rn(g, -ek);
+    ek = __dmul_rn(ek, __dsub_rn(1.0, mulsh(gamma, gamma)));
+    // no branch over the slots, so that their latencies overlap; the last
+    // step's products are written and never read
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) {
+      const int i = lane + 32 * m;
+      const bool live = i <= k + 1;
+      const double updated = __dadd_rn(own[m], mulsh(gamma, av[m]));
+      own[m] = live && i >= 1 ? updated : own[m];
+      fresh[live ? i : kLvLen - 1] = own[m];
+      prod[live ? i : kLvProd - 1] = mulsh(own[m], rv[m]);
+    }
+    if (lane == 0) w.pc[k] = -gamma;
+    __syncwarp();
+  }
+  const double* a = w.a[(order - 1) & 1];
+  for (int i = lane; i < order; i += 32) {
+    coef[s * order + i] = zero ? 0.0 : a[i + 1];
+    parcor[s * order + i] = zero ? 0.0 : w.pc[i];
+  }
+  if (lane == 0) zc[s] = zero ? 1 : 0;
+}
+
+// -- serial_abs_mean ---------------------------------------------------------
+//
+// sum_{t=start}^{n-1} |x[t]| / n per row: one chain of n - start dependent
+// adds a row. A CTA is one warp running `rows` rows (lane q runs row q;
+// am_plan picks rows so that the call spreads over the SMs) and staging
+// them through shared-memory tiles, a ring of two where a row does not fit
+// whole: each lane copies its own row's part of a tile with one TMA bulk
+// copy onto the stage's mbarrier. A bulk copy needs 16-byte aligned ends,
+// so a row's tiles start at the aligned element at or below `start`; the
+// element at `start` where that lies 8 bytes past a boundary, and the one
+// at n - 1 where the row's aligned part ends before it, are read by the
+// lane itself (head, tail). A row's stride in shared memory is 2 mod 4
+// doubles, so the lanes' 16-byte loads of one offset in their rows fall in
+// distinct banks. The head is added before the tiles and the tail after
+// them; in the first and the last tile an element outside the copied part
+// adds +0.0 (one compare and one select an element, off the chain); the
+// tiles between are copied whole and run unmasked.
+// Every added value is |x| >= +0.0 or NaN and the sum starts at +0.0, so an
+// added +0.0 leaves the sum's bits as they are.
+
+constexpr int kAmBlock = 8;             // doubles a register set
+constexpr int kAmStep = 2 * kAmBlock;   // tiles are a multiple of this
+constexpr int kAmMaxTile = 1024;
+// Dynamic shared memory of the CTAs an SM holds at once (of its 227 KB,
+// less 1 KB a CTA the card reserves), and the most one CTA takes (on an
+// H100, 416-sample tiles at 214 KB ran the 4,096-row call no faster than
+// 192-sample tiles at 99 KB).
+constexpr int kAmSmemPerSm = 216 * 1024;
+constexpr int kAmSmemBudget = 100 * 1024;
+
+// Where one row's tiles lie: tile j holds elements [a0 + j * tile,
+// a0 + (j + 1) * tile); [clo, chi) is bulk-copied, 16-byte aligned.
+struct AmRow {
+  const double* x;  // the row
+  int a0, clo, chi;
+  int hpos, tpos;  // the head's and the tail's element, or -1
+};
+
+__device__ __forceinline__ AmRow am_row(const double* x, int64_t row,
+                                        int row_len, int start, int n) {
+  AmRow g;
+  g.x = x + row * row_len;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(g.x) >> 3;
+  const int ms = static_cast<int>((base + start) & 1);
+  const int me = static_cast<int>((base + n) & 1);
+  g.a0 = start - ms;
+  g.clo = start + ms;
+  g.chi = n - me;
+  g.hpos = ms && start < n ? start : -1;
+  g.tpos = me && n - 1 >= start ? n - 1 : -1;
+  return g;
+}
+
+// Stages tile j into stage `buf` on bar: lane q < here copies row q's part.
+__device__ __forceinline__ void am_stage(const AmRow& g, bool stager,
+                                         double* buf, uint64_t* bar, int j,
+                                         int tile) {
+  const int t0 = g.a0 + j * tile;
+  const int lo = max(t0, g.clo);
+  const int hi = min(t0 + tile, g.chi);
+  const unsigned bytes = stager && hi > lo ? 8u * (hi - lo) : 0u;
+  const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+  if (threadIdx.x == 0) mbar_expect(bar, total);
+  __syncwarp();
+  if (bytes) {
+    // the lanes' earlier reads of this stage precede the async writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_copy(buf + (lo - t0), g.x + lo, bytes, bar);
+  }
+}
+
+// A tile whose every element is copied: the next set's loads are issued
+// before this set's adds (the last turn reads past the tile, into the pad).
+__device__ __forceinline__ double am_tile(const double* xs, int tile,
+                                          double acc) {
+  constexpr int S = kAmBlock;
+  double r0[S], r1[S];
+  load_run<S, true>(xs, r0);
+  for (int i0 = 0; i0 < tile; i0 += 2 * S) {
+    load_run<S, true>(xs + i0 + S, r1);
+#pragma unroll
+    for (int j = 0; j < S; ++j) acc = __dadd_rn(acc, fabs(r0[j]));
+    load_run<S, true>(xs + i0 + 2 * S, r0);
+#pragma unroll
+    for (int j = 0; j < S; ++j) acc = __dadd_rn(acc, fabs(r1[j]));
+  }
+  return acc;
+}
+
+// The first or last tile: the copied elements [lo, hi) of it in order;
+// the others add +0.0. The loop ends at the warp's last copied element.
+__device__ __forceinline__ double am_tile_range(const double* xs, int lo,
+                                                int hi, double acc) {
+  constexpr int S = kAmBlock;
+  const int end = __reduce_max_sync(0xffffffffu, hi);
+  for (int i0 = 0; i0 < end; i0 += S) {
+    double v[S];
+    load_run<S, true>(xs + i0, v);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool in = static_cast<unsigned>(i0 + j - lo) <
+                      static_cast<unsigned>(hi - lo);
+      acc = __dadd_rn(acc, fabs(in ? v[j] : 0.0));
+    }
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(32)
     abs_mean_kernel(const double* __restrict__ x, double* __restrict__ out,
-                    int64_t nrows, int row_len, int start, int n) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= nrows) return;
-  const double* xr = x + row * row_len;
-  double acc = 0.0;
-  for (int t = start; t < n; ++t) acc = __dadd_rn(acc, fabs(__ldg(xr + t)));
-  out[row] = __ddiv_rn(acc, static_cast<double>(n));
+                    int64_t nrows, int row_len, int start, int n, int rows,
+                    int tile, int ntiles) {
+  extern __shared__ __align__(16) double am_smem[];
+  __shared__ __align__(8) uint64_t bars[2];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int here =
+      nrows - row0 < rows ? static_cast<int>(nrows - row0) : rows;
+  const int lane = threadIdx.x;
+  const bool stager = lane < here;
+  const int q = stager ? lane : here - 1;  // idle lanes shadow the last row
+  const AmRow g = am_row(x, row0 + q, row_len, start, n);
+  const double head = g.hpos >= 0 ? fabs(g.x[g.hpos]) : 0.0;
+  const double tail = g.tpos >= 0 ? fabs(g.x[g.tpos]) : 0.0;
+  const int stride = tile + 2;
+  const int stage = rows * stride;
+  if (lane == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  double* mine = am_smem + q * stride;
+  am_stage(g, stager, mine, bars, 0, tile);
+  if (ntiles > 1) am_stage(g, stager, mine + stage, bars + 1, 1, tile);
+  // the head sample precedes every copied one, the tail follows them
+  double acc = __dadd_rn(0.0, head);
+  for (int j = 0; j < ntiles; ++j) {
+    const int b = j & 1;
+    mbar_wait(bars + b, (j >> 1) & 1);
+    const double* xs = mine + b * stage;
+    if (j == 0 || j == ntiles - 1) {
+      const int t0 = g.a0 + j * tile;
+      acc = am_tile_range(xs, max(g.clo - t0, 0),
+                          max(min(g.chi - t0, tile), 0), acc);
+    } else {
+      acc = am_tile(xs, tile, acc);
+    }
+    if (j + 2 < ntiles) {
+      __syncthreads();  // every lane is done with this stage
+      am_stage(g, stager, mine + b * stage, bars + b, j + 2, tile);
+    }
+  }
+  acc = __dadd_rn(acc, tail);
+  if (stager) out[row0 + lane] = __ddiv_rn(acc, static_cast<double>(n));
 }
 
 // params [rows, units * npu]: per unit, the taps in time-reversed order
@@ -597,21 +905,26 @@ int choose_k(int64_t nseg, int nlags, int sms) {
 
 constexpr int kMaxDevices = 64;
 
-// Lets autocorr_kernel<K> take up to kAcSmemBudget bytes of dynamic shared
-// memory (past the default 48 KB) on the current device, once a device.
-template <int K>
-cudaError_t allow_smem() {
-  static bool done[kMaxDevices] = {};
+// Lets a kernel take up to `bytes` of dynamic shared memory (past the
+// default 48 KB) on the current device, once a device (`done`).
+cudaError_t allow_smem(const void* kernel, int bytes,
+                       bool (&done)[kMaxDevices]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const bool cached = dev >= 0 && dev < kMaxDevices;
   if (cached && done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(autocorr_kernel<K>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kAcSmemBudget);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
   if (e == cudaSuccess && cached) done[dev] = true;
   return e;
+}
+
+template <int K>
+cudaError_t allow_smem() {
+  static bool done[kMaxDevices] = {};
+  return allow_smem(reinterpret_cast<const void*>(autocorr_kernel<K>),
+                    kAcSmemBudget, done);
 }
 
 template <int K>
@@ -649,10 +962,114 @@ unsigned blocks_for(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
+// How levinson_serial runs one call shape: one thread a segment
+// (levinson_thread_kernel<maxp>, maxp the smallest of 4, 8, 16, 32 that
+// holds the order) up to kLvThreadMax, else one warp a segment. CTAs of
+// 128 threads (4 warps), made smaller while the call would fill fewer than
+// two CTAs an SM (thread path) or one (warp path).
+struct LvPlan {
+  int warp;     // 1: one warp a segment
+  int maxp;     // the thread path's template order (0 on the warp path)
+  int threads;  // a CTA
+  int segs;     // segments a CTA
+  int64_t ctas;
+  int64_t smem;  // dynamic shared bytes a CTA
+};
+
+LvPlan lv_plan(int64_t nseg, int order, int sms) {
+  LvPlan p{};
+  p.warp = order > kLvThreadMax ? 1 : 0;
+  if (p.warp) {
+    int warps = kLvWarps;
+    while (warps > 1 && (nseg + warps - 1) / warps < sms) warps /= 2;
+    p.threads = 32 * warps;
+    p.segs = warps;
+    p.smem = static_cast<int64_t>(warps) * sizeof(LvWarp);
+  } else {
+    p.maxp = order <= 4 ? 4 : order <= 8 ? 8 : order <= 16 ? 16 : 32;
+    p.threads = kThreads;
+    while (p.threads > 32 &&
+           (nseg + p.threads - 1) / p.threads < 2 * static_cast<int64_t>(sms)) {
+      p.threads /= 2;
+    }
+    p.segs = p.threads;
+  }
+  p.ctas = (nseg + p.segs - 1) / p.segs;
+  return p;
+}
+
+const void* lv_kernel(const LvPlan& p) {
+  switch (p.warp ? 0 : p.maxp) {
+    case 0: return reinterpret_cast<const void*>(levinson_warp_kernel);
+    case 4: return reinterpret_cast<const void*>(levinson_thread_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(levinson_thread_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(levinson_thread_kernel<16>);
+    default: return reinterpret_cast<const void*>(levinson_thread_kernel<32>);
+  }
+}
+
+// How serial_abs_mean runs one call shape. Rows a CTA (one warp): of 32,
+// 16, ... 1, the count that puts the fewest rows on the busiest SM, the
+// largest among ties (4,096 rows: 32 an SM at 32, 16 or 8 a CTA; 2,560
+// rows: 20 an SM at 4 a CTA, against 32 at 16). The CTAs an SM
+// takes at once share kAmSmemPerSm; a CTA's rows fit whole in one stage
+// where that allows, else they run a ring of two stages of the largest
+// tile that fits (at most kAmMaxTile, so the first tile lands soon).
+struct AmPlan {
+  int rows;    // rows a CTA
+  int tile;    // samples a tile, a multiple of kAmStep
+  int stages;  // 1 or 2
+  int ntiles;  // tiles a row: cover [start - 1, n)
+  int64_t ctas;
+  int64_t smem;  // dynamic shared bytes a CTA
+};
+
+AmPlan am_plan(int64_t nrows, int start, int n, int sms) {
+  AmPlan p{};
+  // the fewest rows on the busiest SM; the most rows a CTA among ties
+  int64_t best = -1;
+  for (int rows = 32; rows >= 1; rows /= 2) {
+    const int64_t ctas = (nrows + rows - 1) / rows;
+    const int64_t load = rows * ((ctas + sms - 1) / sms);
+    if (best < 0 || load < best) {
+      best = load;
+      p.rows = rows;
+    }
+  }
+  p.ctas = (nrows + p.rows - 1) / p.rows;
+  const int64_t per_sm = (p.ctas + sms - 1) / sms;
+  const int64_t budget = std::min<int64_t>(kAmSmemPerSm / per_sm,
+                                           kAmSmemBudget);
+  const int span = n - start + 1;
+  auto bytes = [&](int tile, int stages) {
+    return 8 * (static_cast<int64_t>(stages) * p.rows * (tile + 2) + kAmStep);
+  };
+  const int whole = (span + kAmStep - 1) / kAmStep * kAmStep;
+  if (whole <= kAmMaxTile && bytes(whole, 1) <= budget) {
+    p.tile = whole;
+  } else {
+    const int64_t fit =
+        ((budget / 8 - kAmStep) / (2 * p.rows) - 2) / kAmStep * kAmStep;
+    p.tile = static_cast<int>(fit < kAmStep ? kAmStep : fit);
+    if (p.tile > kAmMaxTile) p.tile = kAmMaxTile;
+    if (p.tile > whole) p.tile = whole;
+  }
+  p.ntiles = (span + p.tile - 1) / p.tile;
+  p.stages = p.ntiles > 1 ? 2 : 1;
+  p.smem = bytes(p.tile, p.stages);
+  return p;
+}
+
+cudaError_t allow_am_smem() {
+  static bool done[kMaxDevices] = {};
+  return allow_smem(reinterpret_cast<const void*>(abs_mean_kernel),
+                    kAmSmemBudget, done);
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous float64 arrays (zc:
-// uint8). Each function launches on `stream`, does not synchronise, and
+// bytes, 0 or 1). Each function launches on `stream`, does not synchronise, and
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // shapes it does not take).
 
@@ -733,23 +1150,92 @@ extern "C" int linne_levinson_serial(const double* ac, double* coef,
   if (nseg < 1 || order < 1 || order > kMaxOrder) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  levinson_kernel<<<blocks_for(nseg), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(ac, coef, parcor, zc,
-                                                         nseg, order);
+  const LvPlan p = lv_plan(nseg, order, sm_count());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned>(p.ctas);
+  if (p.warp) {
+    levinson_warp_kernel<<<grid, p.threads, static_cast<size_t>(p.smem), st>>>(
+        ac, coef, parcor, zc, nseg, order);
+  } else {
+    switch (p.maxp) {
+      case 4:
+        levinson_thread_kernel<4><<<grid, p.threads, 0, st>>>(
+            ac, coef, parcor, zc, nseg, order);
+        break;
+      case 8:
+        levinson_thread_kernel<8><<<grid, p.threads, 0, st>>>(
+            ac, coef, parcor, zc, nseg, order);
+        break;
+      case 16:
+        levinson_thread_kernel<16><<<grid, p.threads, 0, st>>>(
+            ac, coef, parcor, zc, nseg, order);
+        break;
+      default:
+        levinson_thread_kernel<32><<<grid, p.threads, 0, st>>>(
+            ac, coef, parcor, zc, nseg, order);
+        break;
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The plan of one levinson_serial call into out[8]: warp path (1) or
+// thread path (0), the thread path's template order, threads a CTA,
+// segments a CTA, CTAs, dynamic shared bytes a CTA, CTAs an SM holds at
+// once (the occupancy calculator), SMs.
+extern "C" int linne_levinson_plan(int64_t nseg, int order, int64_t* out) {
+  if (nseg < 1 || order < 1 || order > kMaxOrder) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int sms = sm_count();
+  const LvPlan p = lv_plan(nseg, order, sms);
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, lv_kernel(p), p.threads, static_cast<size_t>(p.smem));
+  const int64_t v[8] = {p.warp, p.maxp, p.threads, p.segs,
+                        p.ctas, p.smem, per_sm,    sms};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return static_cast<int>(e);
+}
+
 // x [nrows, row_len] -> out [nrows]; 0 <= start <= n <= row_len, n >= 1.
+// x need only be 8-byte aligned.
 extern "C" int linne_serial_abs_mean(const double* x, double* out,
                                      int64_t nrows, int row_len, int start,
                                      int n, void* stream) {
   if (nrows < 1 || n < 1 || n > row_len || start < 0 || start > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  abs_mean_kernel<<<blocks_for(nrows), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, out, nrows,
-                                                         row_len, start, n);
+  const cudaError_t e = allow_am_smem();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const AmPlan p = am_plan(nrows, start, n, sm_count());
+  abs_mean_kernel<<<static_cast<unsigned>(p.ctas), 32,
+                    static_cast<size_t>(p.smem),
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, out, nrows, row_len, start, n, p.rows, p.tile, p.ntiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of one serial_abs_mean call into out[8]: rows a CTA, tile,
+// stages, tiles a row, CTAs, dynamic shared bytes a CTA, CTAs an SM holds
+// at once (the occupancy calculator), SMs.
+extern "C" int linne_abs_mean_plan(int64_t nrows, int start, int n,
+                                   int64_t* out) {
+  if (nrows < 1 || n < 1 || start < 0 || start > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int sms = sm_count();
+  const AmPlan p = am_plan(nrows, start, n, sms);
+  int per_sm = 0;
+  cudaError_t e = allow_am_smem();
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, abs_mean_kernel, 32, static_cast<size_t>(p.smem));
+  }
+  const int64_t v[8] = {p.rows, p.tile, p.stages, p.ntiles,
+                        p.ctas, p.smem, per_sm,   sms};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return static_cast<int>(e);
 }
 
 // x [rows, n], params [rows, units * npu] -> base, nobase [rows, n];

@@ -8,8 +8,10 @@ order, every operation rounded on its own) with a plain torch version
 beside it that takes the same operations one tensor op at a time. The
 autocorrelation kernel stages its segments through shared-memory tiles
 with TMA bulk copies and runs 1, 2 or 4 lags a thread, each lag's sum one
-serial chain of adds in a register; the other three run one thread per
-independent chain.
+serial chain of adds in a register; the abs-mean kernel stages up to 32
+rows a warp the same way, one row a lane; the recursion runs one thread a
+segment up to order 32 and one warp a segment above; the tap chains run
+one thread per output sample.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors. There is no fallback from one to the other.
@@ -37,7 +39,7 @@ KERNELS = ("autocorr_serial", "levinson_serial", "serial_abs_mean",
 # incremented only where the kernel is launched.
 KERNEL_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
-# The recursion's local array holds the format's largest layer order.
+# The recursion kernels hold the format's largest layer order.
 KERNEL_MAX_ORDER = 128
 
 # Chains a thread of the autocorrelation kernel runs (1, 2 or 4); None
@@ -56,7 +58,9 @@ _SIGNATURES = {
     "autocorr_plan": [_L, _I, _I, _I, _P],
     "dadd_probe": [ctypes.c_double, _I, _P, _P, _P],
     "levinson_serial": [_P, _P, _P, _P, _L, _I, _P],
+    "levinson_plan": [_L, _I, _P],
     "serial_abs_mean": [_P, _P, _L, _I, _I, _I, _P],
+    "abs_mean_plan": [_L, _I, _I, _P],
     "chain_predict": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
 }
 _fns: dict = {}
@@ -227,12 +231,38 @@ def autocorr_plan(nseg: int, ns: int, nlags: int, k: int | None = None,
     a thread, threads a CTA, lag groups a segment, tile, ring stages,
     segments a CTA, CTAs, shared bytes a CTA, CTAs an SM holds at once, and
     the card's SMs."""
-    out = torch.zeros(len(_PLAN_KEYS), dtype=torch.int64)
+    return _plan("autocorr_plan", _PLAN_KEYS, device, nseg, ns, nlags, k or 0)
+
+
+_LEVINSON_PLAN_KEYS = ("warp", "max_order", "threads", "segs_per_cta",
+                       "ctas", "smem_bytes", "ctas_per_sm", "sms")
+_ABS_MEAN_PLAN_KEYS = ("rows_per_cta", "tile", "stages", "tiles", "ctas",
+                       "smem_bytes", "ctas_per_sm", "sms")
+
+
+def _plan(entry: str, keys: tuple, device, *args) -> dict:
+    out = torch.zeros(len(keys), dtype=torch.int64)
     with torch.cuda.device(torch.device(device)):
-        err = _fn("autocorr_plan")(nseg, ns, nlags, k or 0, out.data_ptr())
+        err = _fn(entry)(*args, out.data_ptr())
     if err != 0:
-        raise RuntimeError(f"autocorr_plan failed: CUDA error {err}")
-    return dict(zip(_PLAN_KEYS, out.tolist()))
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return dict(zip(keys, out.tolist()))
+
+
+def levinson_plan(nseg: int, order: int, device="cuda") -> dict:
+    """How the recursion kernel runs a call shape on the card: one warp a
+    segment (warp 1) or one thread (warp 0, with the template's largest
+    order), threads and segments a CTA, CTAs, shared bytes a CTA, CTAs an
+    SM holds at once, and the card's SMs."""
+    return _plan("levinson_plan", _LEVINSON_PLAN_KEYS, device, nseg, order)
+
+
+def abs_mean_plan(nrows: int, start: int, n: int, device="cuda") -> dict:
+    """How the abs-mean kernel runs a call shape on the card: rows a CTA
+    (one warp), tile, ring stages, tiles a row, CTAs, shared bytes a CTA,
+    CTAs an SM holds at once, and the card's SMs."""
+    return _plan("abs_mean_plan", _ABS_MEAN_PLAN_KEYS, device, nrows, start,
+                 n)
 
 
 def dadd_cycles(device="cuda") -> float:
@@ -271,11 +301,12 @@ def levinson_serial(ac: torch.Tensor, order: int):
     lead = ac.shape[:-1]
     coef = ac.new_empty(lead + (order,))
     parcor = ac.new_empty(lead + (order,))
-    zc = torch.empty(lead, dtype=torch.uint8, device=ac.device)
+    # the kernel writes each flag as a byte 0 or 1: a bool tensor's layout
+    zc = torch.empty(lead, dtype=torch.bool, device=ac.device)
     if zc.numel():
         _launch("levinson_serial", ac.device, ac.data_ptr(), coef.data_ptr(),
                 parcor.data_ptr(), zc.data_ptr(), zc.numel(), order)
-    return coef, parcor, zc.bool()
+    return coef, parcor, zc
 
 
 def serial_abs_mean(rows: torch.Tensor, start: int, n: int) -> torch.Tensor:

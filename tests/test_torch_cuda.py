@@ -242,36 +242,156 @@ def test_dadd_probe_measures_a_latency():
     assert 2.0 < cycles < 64.0
 
 
-@pytest.mark.parametrize("order", [1, 2, 31, 32, 33, 64, 128])
-def test_levinson_kernel_matches_plain_version(order):
-    """Autocorrelations of seeded segments after a ridge, a zero-signal
-    row (|r0| < FLT_EPSILON) and a tiny one."""
-    _require_card()
-    seg = _segments(13, 1, 4 * order + 16, order)
-    seg[3] *= 1e-5
-    ac = ES.autocorr_serial_ref(seg, order + 1)[:, 0].contiguous()
-    ac[:, 0] *= 1.0 + 1.0 / 512.0
+def _check_levinson(ac, order):
+    """One launch, bit-equal to the plain version; returns the zero-case
+    flags."""
     before = ES.KERNEL_LAUNCHES["levinson_serial"]
     got = ES.levinson_serial(ac, order)
     torch.cuda.synchronize()
     assert ES.KERNEL_LAUNCHES["levinson_serial"] == before + 1
     want = ES.levinson_serial_ref(ac, order)
-    assert bool(want[2][0]) and not bool(want[2][1])
     for g, w in zip(got[:2], want[:2]):
         assert torch.equal(_bits(g), _bits(w))
     assert torch.equal(got[2], want[2])
+    return want[2]
 
 
-@pytest.mark.parametrize("rows,n,start", [(13 * 8, 10240, 1), (3, 77, 0),
-                                          (130, 2048, 0)])
-def test_abs_mean_kernel_matches_plain_version(rows, n, start):
+def _levinson_rows(nseg, order, seed):
+    """Autocorrelations of seeded segments after a ridge; row 0 is a
+    zero-signal row (|r0| < FLT_EPSILON), row 3 a tiny one."""
+    seg = _segments(nseg, 1, 4 * order + 16, seed)
+    seg[3 % nseg] *= 1e-5
+    ac = ES.autocorr_serial_ref(seg, order + 1)[:, 0].contiguous()
+    ac[:, 0] *= 1.0 + 1.0 / 512.0
+    return ac
+
+
+@pytest.mark.parametrize("order", range(1, 129))
+def test_levinson_kernel_matches_plain_version(order):
+    """Every order the format has, on 13 segments: the thread path up to
+    order 32 (each template), the warp path above, as the plan picks."""
     _require_card()
-    x = _segments(rows, 1, n, n)[:, 0].contiguous()
+    plan = ES.levinson_plan(13, order)
+    assert plan["warp"] == (order > 32)
+    zc = _check_levinson(_levinson_rows(13, order, order), order)
+    assert bool(zc[0]) and not bool(zc[1])
+
+
+def _preset7_levinson_calls():
+    """(units, order) of every levinson_serial call of a preset-7 fit."""
+    return [(u, order // u) for order in (4, 128, 16)
+            for u in (1, 2, 4, 8, 16, 32, 64, 128) if u <= order]
+
+
+@pytest.mark.parametrize("units,order", _preset7_levinson_calls())
+def test_levinson_kernel_preset7_calls(units, order):
+    """Every call shape of a preset-7 fit chunk, at 5 rows of units
+    segments each."""
+    _require_card()
+    _check_levinson(_levinson_rows(5 * units, order, units), order)
+
+
+@pytest.mark.parametrize("order", [2, 8, 31, 33, 128])
+def test_levinson_kernel_special_rows(order):
+    """A constant signal (ek exactly 0 after the first step, then 0 / -0),
+    a pure tone (ek near 0), NaN and +-Inf lags, r0 = +-Inf, a zero row."""
+    _require_card()
+    ac = _levinson_rows(8, order, 7 * order)
+    lags = torch.arange(order + 1, dtype=torch.float64, device="cuda")
+    ac[1] = 1.0
+    ac[2] = torch.cos(0.3 * lags)
+    ac[3, min(order, 3)] = float("nan")
+    ac[4, 1] = float("inf")
+    ac[5, order] = -float("inf")
+    ac[6, 0] = float("inf")
+    ac[7] = 0.0
+    zc = _check_levinson(ac, order)
+    assert bool(zc[0]) and bool(zc[7]) and not bool(zc[1])
+
+
+def _check_abs_mean(x, start, n):
     before = ES.KERNEL_LAUNCHES["serial_abs_mean"]
     got = ES.serial_abs_mean(x, start, n)
     torch.cuda.synchronize()
     assert ES.KERNEL_LAUNCHES["serial_abs_mean"] == before + 1
     assert torch.equal(_bits(got), _bits(ES.serial_abs_mean_ref(x, start, n)))
+
+
+@pytest.mark.parametrize("rows,n,start", [
+    (13 * 8, 10240, 1), (3, 77, 0), (130, 2048, 0), (13, 77, 1), (5, 1, 0),
+    (5, 1, 1), (7, 2, 1), (7, 3, 1), (4, 16, 16)])
+def test_abs_mean_kernel_matches_plain_version(rows, n, start):
+    """Odd and even lengths (neighbouring rows of odd length start on and
+    off a 16-byte boundary), n = 1, start == n, a single sample."""
+    _require_card()
+    _check_abs_mean(_segments(rows, 1, n, n)[:, 0].contiguous(), start, n)
+
+
+@pytest.mark.parametrize("lead,start", [((3, 3), 1), ((3, 8), 1),
+                                        ((3, 5), 1), ((3,), 0)])
+def test_abs_mean_kernel_preset7_calls(lead, start):
+    """The four call shapes of a preset-7 fit chunk ([B, L, 10240] for L =
+    3, 8, 5 unit levels from start 1, then [B, 10240] from 0) at 3 rows."""
+    _require_card()
+    x = _segments(int(np.prod(lead)), 1, 10240, len(lead) + start)
+    _check_abs_mean(x.reshape(lead + (10240,)), start, 10240)
+
+
+@pytest.mark.parametrize("per_cta", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("start", [0, 1])
+def test_abs_mean_kernel_plans(per_cta, start):
+    """Each rows-a-CTA bucket of the plan, with rows of several tiles."""
+    _require_card()
+    sms = ES.abs_mean_plan(1, start, 3001)["sms"]
+    nrows = per_cta * sms
+    plan = ES.abs_mean_plan(nrows, start, 3001)
+    assert plan["rows_per_cta"] == per_cta and plan["tiles"] > 1
+    x = _segments(nrows, 1, 3003, per_cta)[:, 0].contiguous()
+    _check_abs_mean(x, start, 3001)  # n < row_len, odd
+
+
+@pytest.mark.parametrize("extra", [-2, -1, 0, 1, 2])
+@pytest.mark.parametrize("start", [0, 1])
+def test_abs_mean_kernel_tile_edges(extra, start):
+    """Rows whose span from the aligned element at or below start ends
+    around three tiles of the ring, on and off a 16-byte boundary."""
+    _require_card()
+    tile = ES.abs_mean_plan(13, start, 10240)["tile"]
+    n = 3 * tile + start + extra
+    plan = ES.abs_mean_plan(13, start, n)
+    assert plan["tile"] == tile and plan["stages"] == 2
+    _check_abs_mean(_segments(13, 1, n, n)[:, 0].contiguous(), start, n)
+
+
+@pytest.mark.parametrize("n", [77, 2500])
+def test_abs_mean_kernel_special_values(n):
+    """NaN, +-Inf, -0.0 and subnormal samples, in the first, the middle
+    and the last tile."""
+    _require_card()
+    x = _segments(6, 1, n, n)[:, 0].contiguous()
+    x[0, 1] = float("nan")
+    x[1, n // 2] = float("inf")
+    x[1, n - 1] = -float("inf")
+    x[2, ::3] = -0.0
+    x[3] = -0.0
+    x[4] *= 2.0 ** -1060
+    x[5, n - 1] = float("nan")
+    for start in (0, 1):
+        _check_abs_mean(x, start, n)
+
+
+@pytest.mark.parametrize("row_len,n,start", [(1000, 1000, 1), (999, 999, 0),
+                                             (2600, 2599, 1)])
+def test_abs_mean_kernel_unaligned_rows(row_len, n, start):
+    """Rows that start 8 bytes past a 16-byte boundary (a view at offset
+    1): the head and tail samples the lanes read themselves."""
+    _require_card()
+    x = _segments(9, 1, row_len, row_len)[:, 0].contiguous()
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 8
+    _check_abs_mean(shifted, start, n)
 
 
 @pytest.mark.parametrize("rows,n,units,npu", [

@@ -37,6 +37,15 @@ def _signal(B, n, seed):
     return np.clip(np.stack(rows), -32768, 32767).astype(np.int32)
 
 
+@pytest.fixture
+def _one_torch_thread():
+    """One intra-op thread per test: the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fit_input(preset_idx):
     """Three rows and an all-zero row (the zero-signal early-out lane)."""
     sig = _signal(4, N, seed=10 + preset_idx)
@@ -274,6 +283,66 @@ def test_levinson_serial_bit_equal_to_jax(order):
         assert _bits_equal(g, w)
 
 
+def _special_ac_rows(order, seed):
+    """Autocorrelation rows at the recursion's edges: a constant signal
+    (ek exactly 0 after the first step, then 0 / -0), a pure tone (ek near
+    0), a NaN lag, +-Inf lags, r0 = +Inf, a zero row (|r0| < FLT_EPSILON)
+    and an ordinary row."""
+    ac = np.repeat(_ac_rows(order, seed)[:1], 8, axis=0)
+    lags = np.arange(order + 1)
+    ac[1] = 1.0
+    ac[2] = np.cos(0.3 * lags)
+    ac[3, min(order, 3)] = np.nan
+    ac[4, 1] = np.inf
+    ac[5, order] = -np.inf
+    ac[6, 0] = np.inf
+    ac[7] = 0.0
+    return ac
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.parametrize("order", [2, 8, 33])
+def test_levinson_serial_special_rows_bit_equal_to_jax(order):
+    """NaN and +-Inf lags, ek reaching 0, a tone, the zero case; the
+    unrolled recursion (order <= 32) and the scan tail."""
+    ac = _special_ac_rows(order, 40 + order)
+    want = [np.asarray(a) for a in J._levinson_serial(jnp.asarray(ac),
+                                                      order)]
+    got = [a.numpy() for a in S.levinson_serial(torch.from_numpy(ac), order)]
+    assert want[2][7] and not want[2][1]
+    assert np.isnan(want[1][1]).any()  # 0 / -0 at the step after ek = 0
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.parametrize("order", [4, 40])
+def test_levinson_serial_keeps_subnormals_like_the_host_oracle(order):
+    """Lags whose products and coefficients fall in the subnormal range,
+    which XLA:CPU flushes to zero: the plain version keeps them as the JAX
+    package's host oracle (linne_tpu.native.exact_levinson, the reference
+    C encoder's recursion) does, bit for bit."""
+    from linne_tpu import native
+    from linne_tpu.constants import FLT_EPSILON
+
+    rng = np.random.default_rng(order)
+    ac = np.empty((3, order + 1))
+    ac[:, 0] = 1.0 + rng.uniform(0, 1, 3)
+    ac[:, 1:] = rng.normal(0, 1, (3, order)) * 2.0 ** -530
+    ac[1, 1:] *= 2.0 ** -500
+    ac[2, 2::2] = rng.normal(0, 0.2, order // 2)
+    got = [a.numpy() for a in S.levinson_serial(torch.from_numpy(ac), order)]
+    tiny = np.finfo(np.float64).tiny
+    for row, coef, parcor in zip(ac, got[0], got[1]):
+        want_coef = np.zeros(order + 1)
+        want_parcor = np.zeros(order + 1)
+        native.exact_levinson(row.copy(), order, FLT_EPSILON, want_coef,
+                              want_parcor)
+        assert _bits_equal(coef, want_coef[:order])
+        assert _bits_equal(parcor, want_parcor[:order])
+    assert np.any((got[0] != 0) & (np.abs(got[0]) < tiny))
+
+
 @pytest.mark.parametrize("units,npu", [(1, 32), (4, 8), (32, 1), (2, 3)])
 def test_chain_predict_bit_equal_to_jax(units, npu):
     rng = np.random.default_rng(units * 100 + npu)
@@ -293,6 +362,56 @@ def test_serial_abs_mean_bit_equal_to_jax(start, n):
     want = np.asarray(J._serial_abs_mean(jnp.asarray(rows), start, n))
     got = S.serial_abs_mean(torch.from_numpy(rows), start, n)
     assert _bits_equal(got.numpy(), want)
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.parametrize("start,n,kind", [
+    pytest.param(0, 77, "nonfinite", id="0-77-nonfinite"),
+    pytest.param(1, 77, "nonfinite", id="1-77-nonfinite"),
+    pytest.param(0, 64, "signed_zero", id="0-64-signed_zero"),
+    pytest.param(1, 64, "signed_zero", id="1-64-signed_zero"),
+    pytest.param(64, 64, None, id="64-64-empty"),
+    pytest.param(1, 1, None, id="1-1-empty"),
+    pytest.param(0, 1, None, id="0-1"),
+    pytest.param(1, 61, None, id="1-61-short"),
+])
+def test_serial_abs_mean_special_values_bit_equal_to_jax(start, n, kind):
+    """NaN, +-Inf and -0.0 samples, an empty range (start == n), one
+    sample, and n short of the row's length."""
+    rng = np.random.default_rng(start + 3 * n)
+    rows = rng.normal(0, 0.3, (3, 4, max(n, 64) + 3))
+    if kind == "nonfinite":
+        rows[0, 0, 3] = np.nan
+        rows[0, 1, n - 1] = np.inf
+        rows[1, 0, [1, 5]] = [np.inf, -np.inf]
+        rows[1, 1, 0] = np.nan
+        rows[2, 2, :] = -np.inf
+    elif kind == "signed_zero":
+        rows[0, 0] = -0.0
+        rows[1, 1, ::2] = -0.0
+        rows[2, 3] = 0.0
+    want = np.asarray(J._serial_abs_mean(jnp.asarray(rows), start, n))
+    got = S.serial_abs_mean(torch.from_numpy(rows), start, n)
+    assert _bits_equal(got.numpy(), want)
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+def test_serial_abs_mean_keeps_subnormals_like_the_host_oracle():
+    """Subnormal samples, which XLA:CPU flushes to zero: the plain version
+    keeps them as the JAX package's host oracle does (the loss of
+    linne_tpu/exact/network.py: _serial_sum(|x[start:n]|) / n)."""
+    from linne_tpu.exact.lpc import _serial_sum
+
+    rng = np.random.default_rng(5)
+    rows = rng.normal(0, 1, (4, 53)) * 2.0 ** -1060
+    rows[1, ::3] *= 2.0 ** 40
+    rows[2] *= 2.0 ** 100  # normal beside subnormal
+    rows[3, 1::2] = -0.0
+    for start in (0, 1):
+        got = S.serial_abs_mean(torch.from_numpy(rows), start, 53).numpy()
+        want = np.array([_serial_sum(np.abs(r[start:53])) / 53 for r in rows])
+        assert np.any((want != 0) & (np.abs(want) < np.finfo(np.float64).tiny))
+        assert _bits_equal(got, want)
 
 
 def test_quantize_layer_bit_equal_to_jax():
