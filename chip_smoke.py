@@ -5,21 +5,41 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the kernels from linne_tpu_torch/csrc/synthesis.cu and
-     exact_serial.cu (one nvcc each, started together, beside a third that
-     prints nvcc -Xptxas -v's registers, shared memory and spills for
-     exact_serial.cu); measure the card's dependent DADD latency with the
-     clock64 probe of exact_serial.cu;
+  2. build the kernels from linne_tpu_torch/csrc/synthesis.cu,
+     exact_serial.cu and analysis_scans.cu (one nvcc each, started
+     together, beside two more that print nvcc -Xptxas -v's registers,
+     shared memory and spills for exact_serial.cu and analysis_scans.cu);
+     measure the card's dependent DADD latency with the clock64 probe of
+     exact_serial.cu and its DDIV latency with the one of
+     analysis_scans.cu;
   3. kernel: compare the kernel with its plain torch version on the card,
      bit for bit, at the edge shapes of its design (taps per unit 1..128
      around the 32-lane chunk, rows shorter than a chunk, ragged chunks, a
      row count that is not a multiple of the warps per block), and time
      both at the layer-1 group of a 60 s stereo track, beside the bound;
+  3b. the encode's serial loops (analysis_scans.cu): each kernel against
+     its plain torch version on the card, one launch a case: the quantizer
+     at every order 1..128 (all-zero rows, the 2^-7 threshold, exact .5
+     ties, the +-128 clamp), bit for bit; levinson_durbin at orders 1, 2,
+     4, 16, 31-33, 64, 127, 128 with silent, guard (ek exactly 0),
+     rank-deficient, NaN and +-Inf rows (NaN and +-Inf in the same places,
+     silent and guard rows bit-equal, determined rows within
+     LEVINSON_RTOL, the same bits run to run and in reversed rows); the
+     dense predict cascade at every (order, unit choices) of presets 0-7
+     at every log2u, int32 extremes that wrap, rshift 1..15, bit for bit;
   4. main path: TorchEncoder.encode_many on a seeded 4 x 30 s stereo corpus
      at preset 7, then TorchDecoder.decode_many, both on the card; every
-     stream must decode losslessly (also under the host Decoder) and the
-     decode must have launched the kernel; the W of each batch, the
-     overflow rows and the bytes each transfer moved;
+     stream must decode losslessly (also under the host Decoder), the
+     encode must have launched each analysis_scans kernel and the decode
+     the synthesis kernel; the W of each batch, the overflow rows and the
+     bytes each transfer moved; then every analysis_scans call of one
+     64-block batch, checked against its plain version and timed beside
+     its bound and chain bound; the torch ops that batch dispatches per
+     stage (pre_stage, each fit_stage, select/finish) and its device time
+     against its wall time, with the kernels and with the plain versions
+     forced on the card; the corpus encode in 5 alternating pairs of the
+     two (multiples, sizes within 0.1 %, blocks that differ, every stream
+     lossless);
   5. decode groups: every (rows, ns, npu) launch of that decode, recorded
      in a second decode, checked bit for bit against the plain version and
      timed (CUDA events) beside its bound; then one decode under
@@ -112,6 +132,7 @@ from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.constants import (
     CH_PROCESS_MS,
+    HEADER_SIZE,
     LPC_COEF_BITWIDTH,
     TRAINING_LEARNING_RATE,
     TRAINING_LOSS_EPSILON,
@@ -119,10 +140,12 @@ from linne_tpu_torch.constants import (
 from linne_tpu_torch.exact import device_encoder as DE
 from linne_tpu_torch.exact.encoder import ExactEncoder
 from linne_tpu_torch.exact.parallel_encoder import ParallelExactEncoder
+from linne_tpu_torch.format.block import parse_block_header
 from linne_tpu_torch.io.wav import write_wav
 from linne_tpu_torch.ops import _kernels
 from linne_tpu_torch.ops import afmethod
 from linne_tpu_torch.ops import analysis as A
+from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import bitpack
 from linne_tpu_torch.ops import exact_device as ED
 from linne_tpu_torch.ops import intops as I
@@ -270,8 +293,7 @@ def lossless(sig: np.ndarray, decoded) -> bool:
                for ch in range(sig.shape[0]))
 
 
-def main_path_phase():
-    tracks = [make_track(30.0, seed) for seed in range(4)]
+def main_path_phase(tracks):
     lengths = [t.shape[1] for t in tracks]
     seconds = sum(lengths) / RATE
     # warm-up: CUDA context, cuFFT plans, pinned-memory pool
@@ -286,6 +308,8 @@ def main_path_phase():
     enc.set_encode_parameter(param())
     dec = TorchDecoder(device="cuda")
     S.KERNEL_LAUNCHES = 0
+    for k in AS.KERNELS:
+        AS.KERNEL_LAUNCHES[k] = 0
     t0 = time.perf_counter()
     datas = enc.encode_many([[t[0], t[1]] for t in tracks], lengths)
     torch.cuda.synchronize()
@@ -294,8 +318,11 @@ def main_path_phase():
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = S.KERNEL_LAUNCHES
+    scan_launches = dict(AS.KERNEL_LAUNCHES)
 
     require(launches > 0, "decode_many did not launch the synthesis kernel")
+    for k, v in scan_launches.items():
+        require(v > 0, f"encode_many did not launch the {k} kernel")
     for sig, data, out in zip(tracks, datas, decoded):
         require(lossless(sig, out), "TorchDecoder output is not lossless")
         require(lossless(sig, Decoder().decode_whole(data)),
@@ -307,9 +334,10 @@ def main_path_phase():
           f"({seconds / (t1 - t0):.1f}x realtime), decode {t2 - t1:.3f} s "
           f"({seconds / (t2 - t1):.1f}x realtime), "
           f"size {100.0 * out_bytes / in_bytes:.3f} % of PCM, "
-          f"kernel launches {launches}")
+          f"kernel launches {launches}; encode launches of the "
+          f"analysis_scans kernels {scan_launches}")
     transfer_report(enc, dec, datas)
-    return launches, datas, seconds / (t1 - t0)
+    return launches, scan_launches, datas, seconds / (t1 - t0)
 
 
 def compress_samples(datas) -> int:
@@ -481,6 +509,483 @@ def cross_device_phase() -> None:
     print(f"cross-device: cpu (lag/FFT routes) {len(a)} bytes, cuda "
           f"({route} routes) {len(b)} bytes, identical streams: {a == b}, "
           f"bytes equal at {same} of {max(len(a), len(b))} positions")
+
+
+# -- the encode's serial loops as kernels (analysis_scans.cu) -----------------
+
+_SCAN_PLAIN = {"levinson_durbin": A._levinson_durbin_plain,
+               "quantize_coefficients": A._quantize_coefficients_plain,
+               "predict_dense": I._predict_dense_plain}
+# Where each kernel's loop stands in the JAX package: an XLA scan inside a
+# jitted stage, not a Pallas kernel.
+_SCAN_REPLACES = {"levinson_durbin": "linne_tpu/ops/analysis.py:141",
+                  "quantize_coefficients": "linne_tpu/ops/analysis.py:426",
+                  "predict_dense": "linne_tpu/ops/intops.py:87"}
+# The recursion's tolerance against its plain version. Both round every
+# operation alike but sum a . s in other orders, so they differ by the
+# rounding of those sums, which the recursion carries on. On rows that the
+# data determine (the plain version's prediction error prod(1 - parcor^2)
+# stays at or above LEVINSON_DETERMINED of lag 0, every |parcor| < 1) the
+# kernel is held to LEVINSON_RTOL x the row's largest |value|. Below that a
+# row is rank-deficient up to rounding (a pure tone): both versions divide
+# rounding noise by rounding noise there, and only NaN and +-Inf are held
+# to the same places.
+LEVINSON_RTOL = 1e-9
+LEVINSON_DETERMINED = 1e-8
+# the quantizer's dependent float64 steps a tap (add, add 0.5, floor,
+# clamp, subtract), each taken at the probed DADD latency (reckoned)
+QUANT_CHAIN_STEPS = 5
+
+
+def check_levinson(args, got, what, exact_rows=()):
+    """Kernel outputs against the plain version on the same args: NaN and
+    +-Inf in the same places, the determined rows within LEVINSON_RTOL of
+    the row's largest |value|, exact_rows bit for bit. Returns (largest
+    relative difference, largest absolute difference, on the determined
+    rows; determined rows, rows)."""
+    ac, order = args[0], args[1]
+    want_lpc, want_pc = A._levinson_durbin_plain(ac, order, True)
+    got = got if isinstance(got, tuple) else (got,)
+    wants = (want_lpc, want_pc)[:len(got)]
+    det = ((want_pc.abs() < 1).all(-1)
+           & (torch.prod(1 - want_pc * want_pc, -1) >= LEVINSON_DETERMINED))
+    rel_max = abs_max = 0.0
+    for g, w in zip(got, wants):
+        require(torch.equal(g.isnan(), w.isnan()),
+                f"levinson_durbin NaN places differ at {what}")
+        inf = w.isinf()
+        require(torch.equal(g.isinf(), inf) and torch.equal(g[inf], w[inf]),
+                f"levinson_durbin +-Inf places differ at {what}")
+        fin = torch.isfinite(w)
+        scale = torch.where(fin, w.abs(), 0.0).amax(-1)
+        diff = torch.where(fin, (g - w).abs(), 0.0).amax(-1)
+        rel = torch.where(scale > 0, diff / scale.clamp(min=1e-300), diff)
+        if bool(det.any()):
+            rel_max = max(rel_max, float(rel[det].max()))
+            abs_max = max(abs_max, float(diff[det].max()))
+        for r in exact_rows:
+            require(torch.equal(bits(g[r]), bits(w[r])),
+                    f"levinson_durbin row {r} not bit-equal at {what}")
+    require(rel_max <= LEVINSON_RTOL,
+            f"levinson_durbin off by {rel_max:.3g} of the row at {what}")
+    return rel_max, abs_max, int(det.sum()), int(det.numel())
+
+
+def check_scan(name, args, got, what, exact_rows=()):
+    """One kernel call's outputs against the plain version. Returns (largest
+    relative, largest absolute difference, determined rows, rows); the
+    quantizer and the predict cascade must be bit-equal."""
+    if name == "levinson_durbin":
+        return check_levinson(args, got, what, exact_rows)
+    want = _SCAN_PLAIN[name](*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        require(torch.equal(g, w), f"{name} != plain version at {what}")
+    return 0.0, 0.0, 0, 0
+
+
+def scan_launch(name, args):
+    """One call of the kernel through its wrapper, which must launch it
+    once."""
+    before = AS.KERNEL_LAUNCHES[name]
+    got = getattr(AS, name)(*args)
+    torch.cuda.synchronize()
+    require(AS.KERNEL_LAUNCHES[name] == before + 1,
+            f"{name}: not one launch")
+    return got
+
+
+def quantize_edge_rows(order, seed) -> torch.Tensor:
+    """[8, order] coefficients on the card: seeded rows at three scales, an
+    all-zero row, rows at and just above the 2^-7 threshold, exact .5 ties
+    at rshift 7, and error feedback near the +-128 clamp."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 0.3, (8, order)) * np.array(
+        [1e-2, 1.0, 4.0, 0.0, 1.0, 1.0, 1.0, 1.0])[:, None]
+    c[4] = 2.0 ** -7
+    c[5] = np.where(np.arange(order) % 2, -1, 1) * 2.0 ** -7 * (1 + 2e-16)
+    c[6] = (rng.integers(-64, 64, order)
+            + 0.5 * rng.integers(0, 2, order)) * 2.0 ** -7
+    c[6, 0] = 0.75
+    c[7] = np.where(np.arange(order) % 3, 127.49, -127.87) * 2.0 ** -7
+    return torch.from_numpy(c).cuda()
+
+
+def levinson_edge_rows(order, seed) -> torch.Tensor:
+    """[14, order + 1] autocorrelations on the card: seeded segments after
+    a ridge (rows 0-6), then a silent row (7), [1, 1, ...] (8: ek exactly 0
+    after the first step), a pure tone (9: rank-deficient), a NaN lag, +Inf
+    at lag 1, -Inf at the last lag, r0 = +Inf (10-13)."""
+    ac = levinson_rows(14, order, seed)
+    lags = torch.arange(order + 1, dtype=torch.float64, device=ac.device)
+    ac[7] = 0.0
+    ac[8] = 1.0
+    ac[9] = torch.cos(0.3 * lags)
+    ac[10, min(order, 3)] = float("nan")
+    ac[11, 1] = float("inf")
+    ac[12, order] = -float("inf")
+    ac[13, 0] = float("inf")
+    return ac
+
+
+def predict_edge_inputs(order, choices, n, seed):
+    """Two rows at each log2u of the choices on the card: samples and
+    coefficients over the whole int32 range on even rows (the sums wrap;
+    int32 extremes among the samples), quantizer-range coefficients on odd
+    rows; rshift 1..15 with 8 on row 0."""
+    rng = np.random.default_rng(seed)
+    rows = 2 * len(choices)
+    x = rng.integers(-2**31, 2**31, (rows, n), dtype=np.int64)
+    x[0, ::7] = -2**31
+    x[1, ::5] = 2**31 - 1
+    c = rng.integers(-2**31, 2**31, (rows, order), dtype=np.int64)
+    c[1::2] = rng.integers(-128, 128, (rows // 2, order))
+    log2u = np.repeat([(u - 1).bit_length() for u in choices], 2)
+    rsh = rng.integers(1, 16, rows)
+    rsh[0] = 8
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda()
+                 for a in (x, c, log2u, rsh))
+
+
+def scans_edge_phase() -> dict:
+    """Each analysis_scans kernel against its plain version on the card at
+    the edges of its design, one launch a case: the quantizer at every order
+    1..128; the recursion at orders around each thread-path template and the
+    warp path, with silent, guard, rank-deficient and non-finite rows, twice
+    (the same bits) and with its rows reversed (the same bits a row); the
+    predict cascade at every (order, unit choices) of presets 0-7 at every
+    log2u, at a length that is a multiple of its tile and one that is not.
+    Returns the largest absolute difference per kernel."""
+    err = dict.fromkeys(AS.KERNELS, 0.0)
+    counts = dict.fromkeys(AS.KERNELS, 0)
+    for order in range(1, 129):
+        args = (quantize_edge_rows(order, order), LPC_COEF_BITWIDTH)
+        check_scan("quantize_coefficients", args,
+                   scan_launch("quantize_coefficients", args), order)
+        counts["quantize_coefficients"] += 1
+    rel = 0.0
+    for order in (1, 2, 4, 16, 31, 32, 33, 64, 127, 128):
+        ac = levinson_edge_rows(order, order)
+        for with_parcor in (False, True):
+            args = (ac, order, with_parcor)
+            got = scan_launch("levinson_durbin", args)
+            r, a, _, _ = check_levinson(args, got, (order, with_parcor),
+                                        exact_rows=(7, 8))
+            rel, err["levinson_durbin"] = max(rel, r), max(
+                err["levinson_durbin"], a)
+            again = scan_launch("levinson_durbin", args)
+            flip = scan_launch("levinson_durbin",
+                               (ac.flip(0).contiguous(), order, with_parcor))
+            for g, h, f in zip(*(t if with_parcor else (t,)
+                                 for t in (got, again, flip))):
+                require(torch.equal(bits(g), bits(h)),
+                        f"levinson_durbin not deterministic at {order}")
+                require(torch.equal(bits(g), bits(f.flip(0))),
+                        f"levinson_durbin depends on the row's place at "
+                        f"{order}")
+            counts["levinson_durbin"] += 3
+    for order, choices in sorted({
+            (o, tuple(A.candidate_units(o, SPB)))
+            for p in PRESETS for o in p.layer_num_params}):
+        for n in (SPB, 3 * 128):  # 384 is no multiple of the 256-sample tile
+            args = predict_edge_inputs(order, choices, n, order + n) + (
+                max(choices),)
+            check_scan("predict_dense", args,
+                       scan_launch("predict_dense", args),
+                       (order, choices, n))
+            counts["predict_dense"] += 1
+    print(f"analysis_scans kernels against their plain versions at "
+          f"{sum(counts.values())} edge cases, one launch each "
+          f"({', '.join(f'{k} {v}' for k, v in counts.items())}): quantizer "
+          f"and predict cascade bit-equal; levinson NaN and +-Inf in the "
+          f"same places, silent and guard rows bit-equal, the same bits run "
+          f"to run and in reversed rows, determined rows within "
+          f"{rel:.3g} of the row's largest |value| (tolerance "
+          f"{LEVINSON_RTOL:g})")
+    return err
+
+
+def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles):
+    """(bound ms, "operations" | "bytes", chain ms) of one analysis_scans
+    call: its operations over the issue rate (FP64 for the recursion and
+    the quantizer, IMAD for the predict cascade, the multiply-adds that
+    these inputs need) against its bytes over the memory rate (inputs read
+    once, outputs written once), and its longest dependent chain at the
+    probed latencies (0 for the predict cascade, whose sums are short
+    beside its multiply-adds)."""
+    if name == "levinson_durbin":
+        ac, order = args[0], args[1]
+        parcor = len(args) > 2 and args[2]
+        rows = ac.numel() // (order + 1)
+        # step k: k + 2 products and adds, the divide, ek (3), the tail (2)
+        # and k + 2 updates (a multiply and an add each)
+        ops = rows * sum(4 * (k + 2) + 6 for k in range(order))
+        nbytes = 8 * rows * (order + 1 + order * (2 if parcor else 1))
+        # a step: one product, the sum's adds (serial in a thread, a
+        # log2 tree of 32 lanes in a warp), the divide, the update's
+        # multiply and add
+        adds = sum((k + 2) if order <= 32 else
+                   (k + 2 + 31) // 32 + 5 for k in range(order))
+        chain = (adds + 3 * order) * dadd_cycles + order * ddiv_cycles
+        t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
+    elif name == "quantize_coefficients":
+        coefs = args[0]
+        rows, order = coefs.shape
+        ops = rows * order * (QUANT_CHAIN_STEPS + 2)  # and |c|, max, product
+        nbytes = rows * order * (8 + 4) + 4 * rows
+        chain = order * QUANT_CHAIN_STEPS * dadd_cycles
+        t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
+    else:
+        x, coefs, log2u = args[0], args[1], args[2]
+        rows, n = x.shape
+        order = coefs.shape[1]
+        l2 = log2u.long().cpu()
+        npu = order >> l2
+        ns = n >> l2
+        # samples past each unit's passthrough head, npu taps each
+        macs = int(torch.sum((n - (n // ns) * npu) * npu))
+        ops = macs
+        nbytes = 4 * (2 * rows * n + rows * order + 2 * rows)
+        chain = 0
+        t_ops = ops / IMAD_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    chain_ms = 1e3 * chain / clock_hz
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", chain_ms
+    return 1e3 * t_bytes, "bytes", chain_ms
+
+
+def batch_blocks(tracks, count=64) -> torch.Tensor:
+    """The first `count` blocks of the corpus as one [count, 2, SPB] int32
+    batch on the card."""
+    blocks = [t[:, b * SPB:(b + 1) * SPB] for t in tracks
+              for b in range(t.shape[1] // SPB)]
+    return torch.from_numpy(np.stack(blocks[:count])).cuda()
+
+
+def scan_calls_phase(tracks, clock_hz, dadd_cycles, ddiv_cycles) -> dict:
+    """Record every analysis_scans call of one 64-block preset-7 batch of
+    the corpus (the main path's shapes), check each against its plain
+    version and time both, beside the bound and the chain bound. Returns
+    per kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by, calls},
+    summed over the batch's calls."""
+    blocks = batch_blocks(tracks)
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(param())
+    analyze = enc._analyze_fn(SPB)[0]
+    analyze(blocks)  # warm: cuBLAS handles, the kernels' library
+    calls = {k: [] for k in AS.KERNELS}
+    real = {k: getattr(AS, k) for k in AS.KERNELS}
+
+    def recorder(name):
+        def rec(*args):
+            calls[name].append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return real[name](*args)
+        return rec
+
+    for k in AS.KERNELS:
+        setattr(AS, k, recorder(k))
+    try:
+        analyze(blocks)
+    finally:
+        for k in AS.KERNELS:
+            setattr(AS, k, real[k])
+    torch.cuda.synchronize()
+
+    out = {}
+    for name in AS.KERNELS:
+        r = {"max_abs_err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0,
+             "bound_ms": 0.0, "chain_ms": 0.0, "calls": len(calls[name]),
+             "det": 0, "rows": 0}
+        by = {"operations": 0.0, "bytes": 0.0}
+        for args in calls[name]:
+            kernel = getattr(AS, name)
+            # the least of three timings: a host stall longer than the
+            # spin lets the enqueue into one of them
+            call_ms = min(kernel_ms(lambda: kernel(*args), reps=5)
+                          for _ in range(3))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _SCAN_PLAIN[name](*args)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            shape = tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
+                          else a for a in args)
+            rel, err, det, rows = check_scan(name, args, kernel(*args),
+                                             shape)
+            b_ms, b_by, c_ms = scan_bound(name, args, clock_hz, dadd_cycles,
+                                          ddiv_cycles)
+            for key, v in (("ms", call_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", b_ms), ("chain_ms", c_ms),
+                           ("det", det), ("rows", rows)):
+                r[key] += v
+            r["rel"] = max(r["rel"], rel)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            by[b_by] += b_ms
+            print(f"  {name} {shape}: {call_ms:.4f} ms, plain torch "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})"
+                  + (f", chain bound {c_ms:.4f} ms" if c_ms else ""))
+        r["bound_by"] = max(by, key=by.get)
+        out[name] = r
+        det = (f"; levinson off by at most {r['rel']:.3g} of the row's "
+               f"largest |value| on {r['det']} of {r['rows']} rows (the "
+               f"determined ones), {r['max_abs_err']:.3g} absolute"
+               if name == "levinson_durbin" else ", bit-equal")
+        chain = (f", chain bound {r['chain_ms']:.4f} ms "
+                 f"({100 * r['chain_ms'] / r['ms']:.1f} % of it reached)"
+                 if r["chain_ms"] else "")
+        print(f"analysis_scans calls {name}: {r['calls']} calls in one "
+              f"64-block batch{det}; kernel {r['ms']:.4f} ms, plain torch "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.2f} % of "
+              f"it reached){chain}")
+    return out
+
+
+class PlainScans:
+    """Within its `with`, the encode's three loops take their plain torch
+    versions on the card too (the public functions are swapped for them),
+    so that a run can be compared with the kernels'."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+        self._real = (A.levinson_durbin, A.quantize_coefficients,
+                      I._predict_dense)
+
+    def __enter__(self):
+        if self.on:
+            A.levinson_durbin = A._levinson_durbin_plain
+            A.quantize_coefficients = A._quantize_coefficients_plain
+            I._predict_dense = I._predict_dense_plain
+        return self
+
+    def __exit__(self, *exc):
+        A.levinson_durbin, A.quantize_coefficients, I._predict_dense = (
+            self._real)
+
+
+def stage_ops(blocks) -> dict:
+    """The torch ops one batch's stages dispatch (views and allocations
+    excluded: they launch nothing): pre_stage, each fit_stage, and the
+    select and finish stages. A stage starts where its first function is
+    entered (fit_layer, take_ridge), so the ridge tensor each fit_stage
+    builds before its fit_layer counts with the stage before it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(param())
+    analyze = enc._analyze_fn(SPB)[0]
+    analyze(blocks)
+    counts = {}
+    stage = ["pre_stage"]
+    real_fit, real_take = A.fit_layer, A.take_ridge
+
+    def fit_layer(x, order, rv):
+        stage[0] = f"fit_stage {order}"
+        return real_fit(x, order, rv)
+
+    def take_ridge(t, best):
+        stage[0] = "select/finish"
+        return real_take(t, best)
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name
+            if not (func.is_view or "empty" in name
+                    or name == "aten::_local_scalar_dense"):
+                counts[stage[0]] = counts.get(stage[0], 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    A.fit_layer, A.take_ridge = fit_layer, take_ridge
+    try:
+        with Count():
+            analyze(blocks)
+    finally:
+        A.fit_layer, A.take_ridge = real_fit, real_take
+    return counts
+
+
+def stream_blocks(data: bytes) -> list:
+    """The bytes of each block of one stream, in order."""
+    out, offset = [], HEADER_SIZE
+    while offset < len(data):
+        size = parse_block_header(data[offset:]).total_size
+        out.append(data[offset:offset + size])
+        offset += size
+    return out
+
+
+def scan_pairs_phase(tracks) -> None:
+    """The plain -e corpus encode with the kernels against the same encode
+    with the plain versions on the card: the torch ops one 64-block batch
+    dispatches per stage, one profiled batch's device time against its
+    wall time, then 5 alternating pairs (multiples, sizes, differing
+    blocks; every stream lossless)."""
+    blocks = batch_blocks(tracks)
+    ops = {}
+    for plain in (False, True):
+        with PlainScans(plain):
+            ops[plain] = stage_ops(blocks)
+            enc = TorchEncoder(device="cuda")
+            enc.set_encode_parameter(param())
+            analyze = enc._analyze_fn(SPB)[0]
+            top = []
+            wall_ms, dev_ms, dev_launches = device_time(analyze, blocks,
+                                                        top=top)
+        label = "plain versions" if plain else "kernels"
+        print(f"scans, one 64-block batch with the {label}: torch ops "
+              + ", ".join(f"{k} {v}" for k, v in ops[plain].items())
+              + f" ({sum(ops[plain].values())} in all); profiled wall "
+              f"{wall_ms:.1f} ms, device {dev_ms:.2f} ms in {dev_launches} "
+              f"launches ({100 * dev_ms / wall_ms:.1f} % busy); largest: "
+              + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top[:5]))
+    print("scans, torch ops the three loops dispatched in one batch "
+          "(plain - kernels): " + ", ".join(
+              f"{k} {ops[True][k] - ops[False].get(k, 0)}"
+              for k in ops[True]))
+
+    chans = [[t[0], t[1]] for t in tracks]
+    lengths = [t.shape[1] for t in tracks]
+    seconds = sum(lengths) / RATE
+    multiples = {False: [], True: []}
+    first = {}
+    for turn in range(5):
+        for plain in ((False, True) if turn % 2 == 0 else (True, False)):
+            with PlainScans(plain):
+                enc = TorchEncoder(device="cuda")
+                enc.set_encode_parameter(param())
+                got, secs = timed(lambda: enc.encode_many(chans, lengths))
+            multiples[plain].append(seconds / secs)
+            if got != first.setdefault(plain, got) or turn == 0:
+                for sig, data in zip(tracks, got):
+                    require(lossless(sig, Decoder().decode_whole(data)),
+                            "a scans-pairs stream is not lossless")
+    sizes = {k: sum(len(d) for d in v) for k, v in first.items()}
+    differ = total = 0
+    for a, b in zip(first[False], first[True]):
+        ba, bb = stream_blocks(a), stream_blocks(b)
+        total += max(len(ba), len(bb))
+        differ += sum(x != y for x, y in zip(ba, bb)) + abs(len(ba) - len(bb))
+    require(abs(sizes[False] - sizes[True]) <= 0.001 * sizes[True],
+            f"kernel and plain corpus sizes differ by more than 0.1 %: "
+            f"{sizes[False]} vs {sizes[True]}")
+    med = {k: float(np.median(v)) for k, v in multiples.items()}
+    for plain in (False, True):
+        v = multiples[plain]
+        print(f"scans pairs, plain -e corpus encode with the "
+              f"{'plain versions' if plain else 'kernels'}: multiples "
+              f"{[round(m, 1) for m in v]}, median {med[plain]:.1f}x "
+              f"({min(v):.1f}-{max(v):.1f}) realtime, {sizes[plain]} bytes, "
+              "lossless")
+    print(f"scans pairs: kernels / plain median ratio "
+          f"{med[False] / med[True]:.3f}; {differ} of {total} blocks differ "
+          f"between the two routes; sizes differ by "
+          f"{sizes[False] - sizes[True]} bytes")
 
 
 # -- the byte-exact device encoder -------------------------------------------
@@ -1559,9 +2064,10 @@ def forced_overflow_phase(tracks, datas) -> None:
           f"launches {launches}")
 
 
-def device_time(fn, *args):
+def device_time(fn, *args, top=None):
     """(wall ms, device ms, device launches) of one fn(*args) under
-    torch.profiler, the card synchronised after it."""
+    torch.profiler, the card synchronised after it; with a list as `top`,
+    its (name, device ms) of every kernel, largest first, are put in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1573,10 +2079,14 @@ def device_time(fn, *args):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     dev_us = launches = 0
+    kernels = []
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             dev_us += ev.self_device_time_total
             launches += ev.count
+            kernels.append((ev.key, ev.self_device_time_total / 1e3))
+    if top is not None:
+        top.extend(sorted(kernels, key=lambda kv: -kv[1]))
     return wall_ms, dev_us / 1e3, launches
 
 
@@ -1690,21 +2200,33 @@ def main() -> int:
     print(f"SM clock (max): {clock_hz / 1e6:.0f} MHz")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-        report = pool.submit(ptxas_report, "exact_serial")
-        list(pool.map(_kernels.build, ["synthesis", "exact_serial"]))
-        print(report.result())
+    sources = ["synthesis", "exact_serial", "analysis_scans"]
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, together
+        reports = [pool.submit(ptxas_report, name)
+                   for name in ("exact_serial", "analysis_scans")]
+        list(pool.map(_kernels.build, sources))
+        for report in reports:
+            print(report.result())
     S._kernel_fn()
     for k in ES.KERNELS:
         ES._fn(k)
-    print(f"built synthesis and exact_serial in "
+    for k in AS.KERNELS:
+        AS._fn(k)
+    print(f"built {', '.join(sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
     dadd = ES.dadd_cycles()
     print(f"DADD latency: {dadd:.3f} cycles a dependent __dadd_rn "
           f"(clock64 probe in exact_serial.cu; {DADD_CYCLES} reckoned)")
+    ddiv = AS.ddiv_cycles()
+    print(f"DDIV latency: {ddiv:.3f} cycles a dependent __ddiv_rn "
+          "(clock64 probe in analysis_scans.cu)")
 
     kernel = kernel_phase()
-    launches, datas, plain_multiple = main_path_phase()
+    scan_err = scans_edge_phase()
+    tracks = corpus()
+    launches, scan_launches, datas, plain_multiple = main_path_phase(tracks)
+    scans = scan_calls_phase(tracks, clock_hz, dadd, ddiv)
+    scan_pairs_phase(tracks)
     group_err = decode_groups_phase(datas)
     decode_profile_phase(datas)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1712,7 +2234,6 @@ def main() -> int:
     cross_device_phase()
 
     edge_err = exact_kernel_phase()
-    tracks = corpus()
     exact_launches, exact_refs = exact_encode_phase(tracks)
     exact = exact_calls_phase(tracks, clock_hz, dadd)
     exact_flags_phase()
@@ -1754,6 +2275,24 @@ def main() -> int:
             "bound_ms": exact[k]["bound_ms"],
             "bound_by": exact[k]["bound_by"],
             # no PyTorch call sums in the reference's serial order
+            "library_ms": None,
+        })
+    for k in AS.KERNELS:
+        report.append({
+            "name": k,
+            "route": "cuda",
+            "source": "linne_tpu_torch/csrc/analysis_scans.cu",
+            # an XLA scan of the JAX graph, not a Pallas kernel
+            "replaces": _SCAN_REPLACES[k],
+            "launches": scan_launches[k],
+            "max_abs_err": max(scan_err[k], scans[k]["max_abs_err"]),
+            # summed over every call of one 64-block preset-7 batch
+            "ms": scans[k]["ms"],
+            "plain_ms": scans[k]["plain_ms"],
+            "bound_ms": scans[k]["bound_ms"],
+            "bound_by": scans[k]["bound_by"],
+            # no PyTorch call runs these recursions, or an int32 FIR that
+            # wraps, on CUDA
             "library_ms": None,
         })
     print(json.dumps({"kernels": report}))

@@ -5,8 +5,11 @@ Every level of the reference's nested per-block loops (ridge candidates x
 layers x unit counts x units; reference call stack:
 LINNENetwork_SetUnitsAndParameters, linne_network.c:582-630) is a batch
 dimension of one tensor computation over [ridges, blocks, channels, ...].
-The recursions over taps or orders (`lax.scan` in the reference) are Python
-loops of batched tensor ops.
+The recursions over taps or orders (`lax.scan` in the reference) are, on
+a CUDA tensor, one launch each of a hand-written kernel
+(ops/analysis_scans.py, csrc/analysis_scans.cu) and, on a CPU tensor,
+their plain versions here: Python loops of batched tensor ops
+(`_levinson_durbin_plain`, `_quantize_coefficients_plain`).
 
 Routes, as in the reference: a lag scan (one pass over the signal per lag
 or tap) for few lags, an FFT (torch.fft) at 32 and above, and the
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 
 from ..constants import FLT_EPSILON
 
+from . import analysis_scans
 from .windows import WINDOW_SIN, WINDOW_WELCH, window_weights
 
 _FFT_AUTOCORR_MIN_LAGS = 32
@@ -127,8 +131,23 @@ def levinson_durbin(ac: torch.Tensor, order: int, with_parcor: bool = False):
     Returns lpc[..., order] (prediction coefficients a_1..a_order, sign
     convention as the reference: residual = x + sum a_i * x_{t-i}); if
     with_parcor, also parcor[..., order] (parcor[k] = -gamma_k).
-    The caller's `ac` is not written.
+    The caller's `ac` is not written. A CPU tensor takes
+    `_levinson_durbin_plain`; any other launches the kernel or raises.
     """
+    if ac.device.type == "cpu":
+        return _levinson_durbin_plain(ac, order, with_parcor)
+    batch_shape = tuple(ac.shape[:-1])
+    out = analysis_scans.levinson_durbin(
+        ac.reshape(-1, ac.shape[-1]).contiguous(), order, with_parcor)
+    if with_parcor:
+        return tuple(t.reshape(batch_shape + (order,)) for t in out)
+    return out.reshape(batch_shape + (order,))
+
+
+def _levinson_durbin_plain(ac: torch.Tensor, order: int,
+                           with_parcor: bool = False):
+    """levinson_durbin as batched torch ops, a Python loop over the order:
+    the kernel's plain version."""
     batch_shape = tuple(ac.shape[:-1])
     silent = torch.abs(ac[..., 0]) < FLT_EPSILON
     ac = torch.cat([torch.where(silent, 1.0, ac[..., 0]).unsqueeze(-1),
@@ -362,7 +381,21 @@ def quantize_coefficients(coefs: torch.Tensor, nbits: int = 8):
     """Batched error-feedback quantizer (reference: lpc.c:981-1040).
 
     coefs: [..., order] float. Returns (int_coef[..., order] int32,
-    rshift[...] int32)."""
+    rshift[...] int32). A CPU tensor takes `_quantize_coefficients_plain`;
+    any other launches the kernel (bit-equal to it) or raises."""
+    if coefs.device.type == "cpu":
+        return _quantize_coefficients_plain(coefs, nbits)
+    batch_shape = tuple(coefs.shape[:-1])
+    order = coefs.shape[-1]
+    int_coef, rshift = analysis_scans.quantize_coefficients(
+        coefs.reshape(-1, order).contiguous(), nbits)
+    return (int_coef.reshape(batch_shape + (order,)),
+            rshift.reshape(batch_shape))
+
+
+def _quantize_coefficients_plain(coefs: torch.Tensor, nbits: int = 8):
+    """quantize_coefficients as batched torch ops, a Python loop over the
+    taps: the kernel's plain version."""
     order = coefs.shape[-1]
     qmax = 1 << (nbits - 1)
     max_abs = torch.amax(torch.abs(coefs), dim=-1)

@@ -7,6 +7,11 @@ and on CUDA, which is what the reference decoder expects
 libs/linne_encoder/src/linne_lpc_predict.c:7-38). The trap is a reduction:
 `torch.sum` of int32 returns int64 and loses the wrap, so the predict
 cascade accumulates tap by tap with elementwise adds and never sums.
+
+The dense predict cascade runs, on a CUDA tensor, as one launch of a
+hand-written kernel (ops/analysis_scans.py, csrc/analysis_scans.cu,
+bit-equal) and, on a CPU tensor, as its plain version
+`_predict_dense_plain`, a Python loop over the taps.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import PREEMPH_COEF_SHIFT
+
+from . import analysis_scans
 
 
 def ms_transform(buf: torch.Tensor) -> torch.Tensor:
@@ -81,6 +88,24 @@ def predict_cascade_layer(
 
 
 def _predict_dense(
+    x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
+    rshift: torch.Tensor, u_max: int,
+) -> torch.Tensor:
+    """Full-order masked FIR (see _predict_dense_plain). A CPU tensor
+    takes the plain version; any other launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return _predict_dense_plain(x, coefs, log2u, rshift, u_max)
+    batch = tuple(x.shape[:-1])
+    n = x.shape[-1]
+    order = coefs.shape[-1]
+    out = analysis_scans.predict_dense(
+        x.reshape(-1, n).contiguous(), coefs.reshape(-1, order).contiguous(),
+        log2u.reshape(-1).contiguous(), rshift.reshape(-1).contiguous(),
+        u_max)
+    return out.reshape(batch + (n,))
+
+
+def _predict_dense_plain(
     x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
     rshift: torch.Tensor, u_max: int,
 ) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the synthesis kernel and the byte-exact
-encoder's serial float64 kernels against their plain torch versions, the
+"""The port on a CUDA card: the synthesis kernel, the byte-exact
+encoder's serial float64 kernels and the batched encode's serial loops
+(analysis_scans, `-k scans`) against their plain torch versions, the
 encoder and decoder on the card against the CPU, the byte-exact device
 encoder on the card against the host oracle, the device-list split of
 the encoders and the decoder against one card, and the slim transfers and
@@ -26,8 +27,12 @@ from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.exact.device_encoder import DeviceExactEncoder
 from linne_tpu_torch.exact.encoder import ExactEncoder
 from linne_tpu_torch.ops import analysis as A
+from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import exact_serial as ES
+from linne_tpu_torch.ops import intops as I
 from linne_tpu_torch.ops import synthesis as S
+from linne_tpu_torch.parallel.mesh import shards
+from linne_tpu_torch.presets import PRESETS
 
 pytestmark = pytest.mark.cuda
 
@@ -726,3 +731,185 @@ def test_card_default_route_is_matmul(monkeypatch):
     monkeypatch.setattr(A, "_MATMUL_ROUTES_OVERRIDE", None)
     assert A._use_matmul_routes(torch.zeros(1, device="cuda"))
     assert not A._use_matmul_routes(torch.zeros(1))
+
+
+# -- the batched encode's serial loops (csrc/analysis_scans.cu) --------------
+#
+# The quantizer and the predict cascade are bit-equal to their plain
+# versions. The recursion sums a . s in its own order: on rows that the data
+# determine (the plain version's prediction error prod(1 - parcor^2) at or
+# above 1e-8 of lag 0, every |parcor| < 1) it is held to 1e-9 of the row's
+# largest |value|; on rows below (rank-deficient up to rounding, a pure
+# tone) both versions divide rounding noise by rounding noise, and only NaN
+# and +-Inf are held to the same places. Silent and guard rows are
+# bit-equal.
+
+_LEV_RTOL, _LEV_DETERMINED = 1e-9, 1e-8
+
+
+def _scan(name, *args):
+    """One call through the kernel's wrapper, which launches it once."""
+    before = AS.KERNEL_LAUNCHES[name]
+    got = getattr(AS, name)(*args)
+    torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES[name] == before + 1
+    return got
+
+
+def _quantize_rows(order, seed):
+    """Seeded rows at three scales, an all-zero row, rows at and just above
+    the 2^-7 threshold, exact .5 ties at rshift 7, error feedback near the
+    +-128 clamp."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 0.3, (8, order)) * np.array(
+        [1e-2, 1.0, 4.0, 0.0, 1.0, 1.0, 1.0, 1.0])[:, None]
+    c[4] = 2.0 ** -7
+    c[5] = np.where(np.arange(order) % 2, -1, 1) * 2.0 ** -7 * (1 + 2e-16)
+    c[6] = (rng.integers(-64, 64, order)
+            + 0.5 * rng.integers(0, 2, order)) * 2.0 ** -7
+    c[6, 0] = 0.75
+    c[7] = np.where(np.arange(order) % 3, 127.49, -127.87) * 2.0 ** -7
+    return torch.from_numpy(c).cuda()
+
+
+@pytest.mark.parametrize("order", range(1, 129))
+def test_scans_quantize_kernel_matches_plain_version(order):
+    _require_card()
+    c = _quantize_rows(order, order)
+    got = _scan("quantize_coefficients", c, 8)
+    want = A._quantize_coefficients_plain(c, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1][3] == 8 and got[1][4] == 8 and got[1][6] == 7
+
+
+def _scan_levinson_rows(rows, order, seed):
+    """Autocorrelations of seeded segments after a ridge; row 0 silent."""
+    seg = _segments(rows, 1, 4 * order + 16, seed)
+    return ES.autocorr_serial_ref(seg, order + 1)[:, 0].contiguous() * (
+        torch.tensor([1.0 + 1.0 / 512.0] + [1.0] * order, device="cuda"))
+
+
+def _check_scan_levinson(ac, order, with_parcor, exact_rows=(0,)):
+    got = _scan("levinson_durbin", ac, order, with_parcor)
+    got = got if with_parcor else (got,)
+    want_lpc, want_pc = A._levinson_durbin_plain(ac, order, True)
+    det = ((want_pc.abs() < 1).all(-1)
+           & (torch.prod(1 - want_pc * want_pc, -1) >= _LEV_DETERMINED))
+    for g, w in zip(got, (want_lpc, want_pc)):
+        assert torch.equal(g.isnan(), w.isnan())
+        inf = w.isinf()
+        assert torch.equal(g.isinf(), inf) and torch.equal(g[inf], w[inf])
+        fin = torch.isfinite(w)
+        scale = torch.where(fin, w.abs(), 0.0).amax(-1)
+        diff = torch.where(fin, (g - w).abs(), 0.0).amax(-1)
+        assert bool(torch.all(diff[det] <= _LEV_RTOL * scale[det]))
+        for r in exact_rows:
+            assert torch.equal(_bits(g[r]), _bits(w[r]))
+    return got
+
+
+@pytest.mark.parametrize("with_parcor", [False, True])
+@pytest.mark.parametrize("order", [1, 2, 4, 16, 31, 32, 33, 64, 127, 128])
+def test_scans_levinson_kernel_matches_plain_version(order, with_parcor):
+    """Seeded rows, a silent row, [1, 1, ...] (ek exactly 0 after the first
+    step), a pure tone, a NaN lag, +-Inf lags and r0 = +Inf, on the thread
+    path (to order 32) and the warp path."""
+    _require_card()
+    ac = _scan_levinson_rows(14, order, order)
+    lags = torch.arange(order + 1, dtype=torch.float64, device="cuda")
+    ac[8] = 1.0
+    ac[9] = torch.cos(0.3 * lags)
+    ac[10, min(order, 3)] = float("nan")
+    ac[11, 1] = float("inf")
+    ac[12, order] = -float("inf")
+    ac[13, 0] = float("inf")
+    got = _check_scan_levinson(ac, order, with_parcor, exact_rows=(0, 8))
+    assert not got[0][0].any()
+    assert got[0][8, 0] == -1.0 and not got[0][8, 1:].any()
+
+
+@pytest.mark.parametrize("units,order", _preset7_levinson_calls())
+def test_scans_levinson_kernel_preset7_calls(units, order):
+    """Every (units, order) of a preset-7 fit, at 8 rows of units
+    segments, with and without parcor."""
+    _require_card()
+    ac = _scan_levinson_rows(8 * units, order, units)
+    for with_parcor in (False, True):
+        _check_scan_levinson(ac, order, with_parcor)
+
+
+def _scan_layers():
+    """(order, unit choices) of every layer of presets 0-7."""
+    return sorted({(o, tuple(A.candidate_units(o, 10240)))
+                   for p in PRESETS for o in p.layer_num_params})
+
+
+def _predict_rows(order, choices, n, seed):
+    """Two rows at each log2u of the choices: samples and coefficients over
+    the whole int32 range on even rows (the sums wrap), quantizer-range
+    coefficients on odd rows; rshift 1..15 with 8 on row 0."""
+    rng = np.random.default_rng(seed)
+    rows = 2 * len(choices)
+    x = rng.integers(-2**31, 2**31, (rows, n), dtype=np.int64)
+    x[0, ::7] = -2**31
+    x[1, ::5] = 2**31 - 1
+    c = rng.integers(-2**31, 2**31, (rows, order), dtype=np.int64)
+    c[1::2] = rng.integers(-128, 128, (rows // 2, order))
+    log2u = np.repeat([(u - 1).bit_length() for u in choices], 2)
+    rsh = rng.integers(1, 16, rows)
+    rsh[0] = 8
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda()
+                 for a in (x, c, log2u, rsh))
+
+
+@pytest.mark.parametrize("n", [10240, 384])  # 384: no multiple of the tile
+@pytest.mark.parametrize("order,choices", _scan_layers())
+def test_scans_predict_kernel_matches_plain_version(order, choices, n):
+    _require_card()
+    args = _predict_rows(order, choices, n, order + n) + (max(choices),)
+    assert torch.equal(_scan("predict_dense", *args),
+                       I._predict_dense_plain(*args))
+
+
+def test_scans_device_list_gives_the_one_device_outputs():
+    """Each kernel over ["cuda:0", "cuda:0"] (rows split into contiguous
+    shards, one launch a shard) gives the one-call outputs bit for bit: no
+    result depends on where a row sits in the batch."""
+    _require_card()
+    mesh = [torch.device("cuda:0"), torch.device("cuda:0")]
+
+    def split(name, tensors, *rest):
+        parts = []
+        for dev, a, b in shards(mesh, tensors[0].shape[0]):
+            out = getattr(AS, name)(*(t[a:b].contiguous().to(dev)
+                                      for t in tensors), *rest)
+            parts.append(out if isinstance(out, tuple) else (out,))
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    ac = _scan_levinson_rows(33, 128, 5)
+    for order, rows in ((128, ac), (16, ac[:, :17].contiguous())):
+        one = AS.levinson_durbin(rows, order, True)
+        for g, w in zip(split("levinson_durbin", (rows,), order, True), one):
+            assert torch.equal(_bits(g), _bits(w))
+    c = _quantize_rows(128, 3).repeat(5, 1)
+    one = AS.quantize_coefficients(c, 8)
+    assert all(torch.equal(g, w) for g, w in zip(
+        split("quantize_coefficients", (c,), 8), one))
+    args = _predict_rows(128, (1, 2, 4, 8, 16, 32, 64, 128), 10240, 9)
+    one = AS.predict_dense(*args, 128)
+    assert torch.equal(split("predict_dense", args, 128)[0], one)
+
+
+def test_scans_kernels_refuse_more_than_max_order():
+    _require_card()
+    before = dict(AS.KERNEL_LAUNCHES)
+    with pytest.raises(ValueError):
+        AS.levinson_durbin(torch.zeros(2, 130, dtype=torch.float64,
+                                       device="cuda"), 129)
+    with pytest.raises(ValueError):
+        AS.quantize_coefficients(torch.zeros(2, 129, dtype=torch.float64,
+                                             device="cuda"))
+    with pytest.raises(ValueError):
+        AS.predict_dense(*(torch.zeros(s, dtype=torch.int32, device="cuda")
+                           for s in ((2, 256), (2, 129), 2, 2)), 4)
+    assert AS.KERNEL_LAUNCHES == before
