@@ -2,7 +2,8 @@
 """Time the port on one CUDA card, to compare two checkouts of the
 repository within one machine.
 
-    python3 chip_pairs.py ROOT LABEL [REPS] [--exact | --kernel NAME]
+    python3 chip_pairs.py ROOT LABEL [REPS] [--exact | --kernel NAME
+                                             [--calls FILE] | --split NAME]
 
 Imports linne_tpu_torch from the checkout at ROOT, encodes the seeded
 4 x 30 s stereo corpus of chip_smoke.py (preset 7, block 10240) with
@@ -22,18 +23,33 @@ levinson_serial, serial_abs_mean or chain_predict; --autocorr is
 --kernel autocorr_serial) it times only that kernel: "<kernel>_chunk_ms",
 "<kernel>_call_ms" (each call alone, [argument shapes, median ms of 7])
 and "<kernel>_digest" (a hash of the chunk's outputs, equal for
-checkouts that give the same bits). Run it for the two checkouts in
-alternating turns (A B B A A B) in one call, so both see the same card
-and host.
+checkouts that give the same bits). --kernel levinson_durbin and --kernel
+predict_dense (analysis_scans) take instead every call of that kernel in
+one 64-block preset-7 batch of the corpus, recorded through
+TorchEncoder's analysis as chip_smoke.py's phase 4 records them: the same
+three keys, "<kernel>_chunk_ms" then the batch's calls. With --calls FILE
+the recorded calls are read from FILE when it exists and written to it
+when it does not, so that two checkouts time the same inputs (predict's
+inputs come from the recursion, which two builds may round apart).
+--split NAME (levinson_durbin or predict_dense) builds ROOT's
+analysis_scans.cu with -DLINNE_CLOCK_SPLIT (the kernels' clock64 marks)
+into a temporary directory and runs each of the batch's calls of NAME
+once through that build: "<kernel>_split" lists [argument shapes, cycles
+a slot] for each call, the cycles one thread of the kernel spent between
+its marks (the slots are named in the source). Run it for the two
+checkouts in alternating turns (A B B A A B) in one call, so both see the
+same card and host.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +95,8 @@ def preset7_autocorr_calls():
 
 KERNELS = ("autocorr_serial", "levinson_serial", "serial_abs_mean",
            "chain_predict")
+# the batched encode's analysis_scans kernels that --kernel and --split take
+SCAN_KERNELS = ("levinson_durbin", "predict_dense")
 # the keys of a kernel's numbers in the JSON line
 SHORT = {"autocorr_serial": "autocorr", "levinson_serial": "levinson",
          "serial_abs_mean": "abs_mean", "chain_predict": "chain_predict"}
@@ -128,12 +146,58 @@ def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def chunk_ms(torch, ES, name: str, runs: int = 5):
+def batch_blocks(torch, count: int = 64):
+    """The first `count` blocks of the corpus as one [count, 2, SPB] int32
+    batch on the card (chip_smoke.py's phase-4 batch)."""
+    tracks = [make_track(30.0, seed) for seed in range(4)]
+    blocks = [t[:, b * SPB:(b + 1) * SPB] for t in tracks
+              for b in range(t.shape[1] // SPB)]
+    return torch.from_numpy(np.stack(blocks[:count])).cuda()
+
+
+def batch_scan_calls(torch, name: str, calls_file=None):
+    """The argument tuples of an analysis_scans kernel's calls in one
+    64-block preset-7 batch, recorded while TorchEncoder's analysis runs
+    it; with calls_file, read from it when it exists, else written to it."""
+    from linne_tpu_torch.codec.encoder import TorchEncoder
+    from linne_tpu_torch.codec.params import EncodeParameter
+    from linne_tpu_torch.ops import analysis_scans as AS
+
+    if calls_file is not None and calls_file.exists():
+        return [tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                      for a in args) for args in torch.load(calls_file)]
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=RATE,
+        num_samples_per_block=SPB, preset=7, ch_process_method=1))
+    analyze = enc._analyze_fn(SPB)[0]
+    blocks = batch_blocks(torch)
+    analyze(blocks)  # warm: cuBLAS handles, the kernels' library
+    calls = []
+    real = getattr(AS, name)
+
+    def record(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return real(*args)
+
+    setattr(AS, name, record)
+    try:
+        analyze(blocks)
+    finally:
+        setattr(AS, name, real)
+    torch.cuda.synchronize()
+    if calls_file is not None:
+        calls_file.parent.mkdir(parents=True, exist_ok=True)
+        torch.save([tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                          for a in args) for args in calls], calls_file)
+    return calls
+
+
+def chunk_ms(torch, kernel, calls, runs: int = 5):
     """CUDA-event milliseconds of a kernel's calls in one chunk, once per
     run; device time (the calls are enqueued while the card is still
     busy)."""
-    calls = chunk_calls(torch, ES, name)
-    kernel = getattr(ES, name)
     for args in calls:  # warm-up: builds and loads the kernel
         kernel(*args)
     torch.cuda.synchronize()
@@ -152,14 +216,13 @@ def chunk_ms(torch, ES, name: str, runs: int = 5):
     return out
 
 
-def call_ms(torch, ES, name: str, runs: int = 7):
+def call_ms(torch, kernel, calls, runs: int = 7):
     """Each call of the chunk alone: [argument shapes, median CUDA-event
     ms of runs, each queued behind a ~1 ms spin], and a hash of the
     outputs."""
     digest = hashlib.sha256()
-    kernel = getattr(ES, name)
     out = []
-    for args in chunk_calls(torch, ES, name):
+    for args in calls:
         for o in _outputs(kernel(*args)):
             digest.update(o.cpu().numpy().tobytes())
         ms = []
@@ -178,15 +241,69 @@ def call_ms(torch, ES, name: str, runs: int = 7):
     return out, digest.hexdigest()[:16]
 
 
-def kernel_times(torch, name: str) -> dict:
-    """A kernel's chunk (5 runs), each call alone and the output hash."""
-    from linne_tpu_torch.ops import exact_serial as ES
+def kernel_times(torch, name: str, calls_file=None) -> dict:
+    """A kernel's chunk or batch (5 runs), each call alone and the output
+    hash."""
+    if name in SCAN_KERNELS:
+        from linne_tpu_torch.ops import analysis_scans as AS
 
-    short = SHORT[name]
-    times = {f"{short}_chunk_ms": chunk_ms(torch, ES, name)}
+        calls = batch_scan_calls(torch, name, calls_file)
+        kernel, short = getattr(AS, name), name
+    else:
+        from linne_tpu_torch.ops import exact_serial as ES
+
+        calls = chunk_calls(torch, ES, name)
+        kernel, short = getattr(ES, name), SHORT[name]
+    times = {f"{short}_chunk_ms": chunk_ms(torch, kernel, calls)}
     times[f"{short}_call_ms"], times[f"{short}_digest"] = call_ms(
-        torch, ES, name)
+        torch, kernel, calls)
     return times
+
+
+def split_times(torch, root: pathlib.Path, name: str) -> dict:
+    """Each of the batch's calls of an analysis_scans kernel once through
+    a build of ROOT's analysis_scans.cu with its clock64 marks: [argument
+    shapes, the cycles booked to each slot]."""
+    from linne_tpu_torch.ops import _kernels
+    from linne_tpu_torch.ops import analysis_scans as AS
+
+    calls = batch_scan_calls(torch, name)
+    src = root / "linne_tpu_torch" / "csrc" / "analysis_scans.cu"
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = pathlib.Path(tmp) / "libsplit.so"
+        subprocess.run([_kernels.find_nvcc(), *_kernels.NVCC_FLAGS,
+                        "-DLINNE_CLOCK_SPLIT", "-o", str(lib_path), str(src)],
+                       check=True)
+        lib = ctypes.CDLL(str(lib_path))
+        fn = getattr(lib, f"linne_{name}")
+        fn.argtypes = AS._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        read = lib.linne_clock_split
+        read.argtypes = [ctypes.c_void_p]
+        read.restype = ctypes.c_int
+        slots = (ctypes.c_longlong * 8)()
+        real = AS._fns.get(name)
+        AS._fns[name] = fn
+        try:
+            kernel = getattr(AS, name)
+            for args in calls:
+                kernel(*args)  # warm
+                torch.cuda.synchronize()
+                read(slots)
+                kernel(*args)
+                torch.cuda.synchronize()
+                if read(slots) != 0:
+                    raise SystemExit("chip_pairs: linne_clock_split failed")
+                shape = [list(a.shape) if isinstance(a, torch.Tensor) else a
+                         for a in args]
+                out.append([shape, list(slots)])
+        finally:
+            if real is None:
+                AS._fns.pop(name, None)
+            else:
+                AS._fns[name] = real
+    return {f"{name}_split": out}
 
 
 def exact_runs(torch, param, chans, lengths, reps: int):
@@ -252,7 +369,8 @@ def corpus_runs(torch, label: str, reps: int, exact: bool) -> dict:
         from linne_tpu_torch.ops import exact_serial as ES
 
         for name in KERNELS:
-            times[f"{SHORT[name]}_chunk_ms"] = chunk_ms(torch, ES, name)
+            times[f"{SHORT[name]}_chunk_ms"] = chunk_ms(
+                torch, getattr(ES, name), chunk_calls(torch, ES, name))
         times["exact_s"] = exact_runs(torch, param, chans, lengths, reps)
     times["seconds_of_audio"] = sum(lengths) / RATE
     return times
@@ -260,16 +378,26 @@ def corpus_runs(torch, label: str, reps: int, exact: bool) -> dict:
 
 def main() -> int:
     argv = sys.argv[1:]
-    kernel = None
-    if "--kernel" in argv:
-        i = argv.index("--kernel")
-        kernel = argv[i + 1]
-        del argv[i:i + 2]
+    kernel = split = calls_file = None
+    for flag in ("--kernel", "--split", "--calls"):
+        if flag in argv:
+            i = argv.index(flag)
+            value = argv[i + 1]
+            del argv[i:i + 2]
+            if flag == "--kernel":
+                kernel = value
+            elif flag == "--split":
+                split = value
+            else:
+                calls_file = pathlib.Path(value).resolve()
     if "--autocorr" in argv:  # the older spelling of --kernel autocorr_serial
         argv.remove("--autocorr")
         kernel = "autocorr_serial"
-    if kernel is not None and kernel not in KERNELS:
-        raise SystemExit(f"chip_pairs: --kernel takes one of {KERNELS}")
+    if kernel is not None and kernel not in KERNELS + SCAN_KERNELS:
+        raise SystemExit(f"chip_pairs: --kernel takes one of "
+                         f"{KERNELS + SCAN_KERNELS}")
+    if split is not None and split not in SCAN_KERNELS:
+        raise SystemExit(f"chip_pairs: --split takes one of {SCAN_KERNELS}")
     exact = "--exact" in argv
     args = [a for a in argv if a != "--exact"]
     root = pathlib.Path(args[0]).resolve()
@@ -280,8 +408,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_pairs: this script needs a CUDA card")
-    if kernel is not None:
-        times = kernel_times(torch, kernel)
+    if split is not None:
+        times = split_times(torch, root, split)
+    elif kernel is not None:
+        times = kernel_times(torch, kernel, calls_file)
     else:
         times = corpus_runs(torch, label, reps, exact)
     card = subprocess.run(

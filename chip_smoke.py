@@ -20,13 +20,15 @@ Phases (any failure raises and the script exits non-zero):
   3b. the encode's serial loops (analysis_scans.cu): each kernel against
      its plain torch version on the card, one launch a case: the quantizer
      at every order 1..128 (all-zero rows, the 2^-7 threshold, exact .5
-     ties, the +-128 clamp), bit for bit; levinson_durbin at orders 1, 2,
-     4, 16, 31-33, 64, 127, 128 with silent, guard (ek exactly 0),
-     rank-deficient, NaN and +-Inf rows (NaN and +-Inf in the same places,
-     silent and guard rows bit-equal, determined rows within
+     ties, the +-128 clamp), bit for bit; levinson_durbin at every order
+     1..128 on 3 CTAs of rows and 14 more, with silent, guard (ek exactly
+     0), rank-deficient, NaN and +-Inf rows (NaN and +-Inf in the same
+     places, silent and guard rows bit-equal, determined rows within
      LEVINSON_RTOL, the same bits run to run and in reversed rows); the
      dense predict cascade at every (order, unit choices) of presets 0-7
-     at every log2u, int32 extremes that wrap, rshift 1..15, bit for bit;
+     at every log2u, int32 extremes that wrap, rshift 1..15, and at
+     PREDICT_EDGES (n that no tile divides, outputs that straddle units,
+     rshift 0, 32 and 40), bit for bit;
   4. main path: TorchEncoder.encode_many on a seeded 4 x 30 s stereo corpus
      at preset 7, then TorchDecoder.decode_many, both on the card; every
      stream must decode losslessly (also under the host Decoder), the
@@ -612,12 +614,13 @@ def quantize_edge_rows(order, seed) -> torch.Tensor:
     return torch.from_numpy(c).cuda()
 
 
-def levinson_edge_rows(order, seed) -> torch.Tensor:
-    """[14, order + 1] autocorrelations on the card: seeded segments after
-    a ridge (rows 0-6), then a silent row (7), [1, 1, ...] (8: ek exactly 0
-    after the first step), a pure tone (9: rank-deficient), a NaN lag, +Inf
-    at lag 1, -Inf at the last lag, r0 = +Inf (10-13)."""
-    ac = levinson_rows(14, order, seed)
+def levinson_edge_rows(order, seed, extra=0) -> torch.Tensor:
+    """[14 + extra, order + 1] autocorrelations on the card: seeded
+    segments after a ridge (rows 0-6 and 14 on), a silent row (7), [1, 1,
+    ...] (8: ek exactly 0 after the first step), a pure tone (9:
+    rank-deficient), a NaN lag, +Inf at lag 1, -Inf at the last lag, r0 =
+    +Inf (10-13)."""
+    ac = levinson_rows(14 + extra, order, seed)
     lags = torch.arange(order + 1, dtype=torch.float64, device=ac.device)
     ac[7] = 0.0
     ac[8] = 1.0
@@ -648,14 +651,26 @@ def predict_edge_inputs(order, choices, n, seed):
                  for a in (x, c, log2u, rsh))
 
 
+# (order, unit choices, n) of the predict cascade's edges: n that neither
+# its 2048-sample tile nor its 16 outputs a thread divide; units of 9 and 33
+# samples (a thread's outputs straddle two units); a row shorter than its
+# history; npu 1 and 128 in one call
+PREDICT_EDGES = [(4, (1, 2, 4), 1500), (4, (1, 2, 4), 12),
+                 (16, (1, 2), 2050), (128, (1, 2), 1030), (1, (1,), 1001),
+                 (128, (1, 2, 4, 8, 16, 32, 64, 128), 1152),
+                 (32, (1, 2, 4, 8, 16, 32), 1056)]
+
+
 def scans_edge_phase() -> dict:
     """Each analysis_scans kernel against its plain version on the card at
     the edges of its design, one launch a case: the quantizer at every order
-    1..128; the recursion at orders around each thread-path template and the
-    warp path, with silent, guard, rank-deficient and non-finite rows, twice
+    1..128; the recursion at every order 1..128 (each lanes-a-row template
+    and its edges) on 3 CTAs of rows and 14 more (no multiple of a CTA's
+    rows), with silent, guard, rank-deficient and non-finite rows, twice
     (the same bits) and with its rows reversed (the same bits a row); the
     predict cascade at every (order, unit choices) of presets 0-7 at every
-    log2u, at a length that is a multiple of its tile and one that is not.
+    log2u, at a length that is a multiple of its tile and one that is not,
+    then at PREDICT_EDGES with rshift 0, 32 and 40 beside 1..15.
     Returns the largest absolute difference per kernel."""
     err = dict.fromkeys(AS.KERNELS, 0.0)
     counts = dict.fromkeys(AS.KERNELS, 0)
@@ -665,8 +680,9 @@ def scans_edge_phase() -> dict:
                    scan_launch("quantize_coefficients", args), order)
         counts["quantize_coefficients"] += 1
     rel = 0.0
-    for order in (1, 2, 4, 16, 31, 32, 33, 64, 127, 128):
-        ac = levinson_edge_rows(order, order)
+    for order in range(1, 129):
+        cta_rows = 128 // AS.levinson_lanes(order)
+        ac = levinson_edge_rows(order, order, extra=3 * cta_rows)
         for with_parcor in (False, True):
             args = (ac, order, with_parcor)
             got = scan_launch("levinson_durbin", args)
@@ -688,13 +704,22 @@ def scans_edge_phase() -> dict:
     for order, choices in sorted({
             (o, tuple(A.candidate_units(o, SPB)))
             for p in PRESETS for o in p.layer_num_params}):
-        for n in (SPB, 3 * 128):  # 384 is no multiple of the 256-sample tile
+        for n in (SPB, 3 * 128):  # 384 is no multiple of the 2048-sample tile
             args = predict_edge_inputs(order, choices, n, order + n) + (
                 max(choices),)
             check_scan("predict_dense", args,
                        scan_launch("predict_dense", args),
                        (order, choices, n))
             counts["predict_dense"] += 1
+    for order, choices, n in PREDICT_EDGES:
+        x, c, log2u, rsh = predict_edge_inputs(order, choices, n, order + n)
+        rsh[0], rsh[-1] = 0, 32
+        if rsh.shape[0] > 2:
+            rsh[1] = 40
+        args = (x, c, log2u, rsh, max(choices))
+        check_scan("predict_dense", args, scan_launch("predict_dense", args),
+                   (order, choices, n, "rshift 0, 32, 40"))
+        counts["predict_dense"] += 1
     print(f"analysis_scans kernels against their plain versions at "
           f"{sum(counts.values())} edge cases, one launch each "
           f"({', '.join(f'{k} {v}' for k, v in counts.items())}): quantizer "
@@ -722,12 +747,10 @@ def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles):
         # and k + 2 updates (a multiply and an add each)
         ops = rows * sum(4 * (k + 2) + 6 for k in range(order))
         nbytes = 8 * rows * (order + 1 + order * (2 if parcor else 1))
-        # a step: one product, the sum's adds (serial in a thread, a
-        # log2 tree of 32 lanes in a warp), the divide, the update's
-        # multiply and add
-        adds = sum((k + 2) if order <= 32 else
-                   (k + 2 + 31) // 32 + 5 for k in range(order))
-        chain = (adds + 3 * order) * dadd_cycles + order * ddiv_cycles
+        # a step of any design that keeps the divide and ek's update: the
+        # divide, then ek's multiply, subtract and multiply (the next
+        # divide waits for ek); the sums may run beside them
+        chain = order * (ddiv_cycles + 3 * dadd_cycles)
         t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
     elif name == "quantize_coefficients":
         coefs = args[0]

@@ -10,13 +10,14 @@
 //                       scan at :448): one thread a row runs the whole
 //                       function, max |c| -> frexp -> rshift -> the tap loop
 //                       from order - 1 down to 0.
-//   levinson_*_kernel   replaces levinson_durbin's scan over the order
-//                       (linne_tpu/ops/analysis.py:141, scan at :185): one
-//                       thread a row up to order 32, one warp a row above.
+//   levinson_kernel<G>  replaces levinson_durbin's scan over the order
+//                       (linne_tpu/ops/analysis.py:141, scan at :185): G
+//                       lanes a row (1 up to order 4, 32 from order 80),
+//                       each step's numerator in Schur form (below).
 //   predict_kernel      replaces _predict_dense's scan over the taps
 //                       (linne_tpu/ops/intops.py:87, scan at :122): the
 //                       masked full-order int32 FIR with per-unit
-//                       passthrough; one CTA a (row, tile of samples).
+//                       passthrough, register-tiled (below).
 //
 // Exactness. The quantizer and the predict cascade are bit-equal to their
 // plain torch versions (linne_tpu_torch/ops/analysis.py
@@ -25,42 +26,36 @@
 // `a + x * y` into an FMA, the intrinsics are never contracted), the
 // rounding is floor(q + 0.5) as there, scale is exp2 of the shift from the
 // same CUDA math function torch calls, and the FIR sums in uint32, where
-// the wrap of int32 arithmetic is associative. The recursion follows the
-// plain version's arithmetic op for op (the silent-row substitution
-// |ac0| < FLT_EPSILON -> 1, the guard gamma = |ek| > 0 ? num / -ek : 0,
-// the generic k = 0 step, the sign convention) except for the order of
-// the sum a . s, which is serial in a thread and a fixed shuffle tree in a
-// warp: deterministic, and the same for a row wherever it sits in the
-// batch (no atomics, nothing across rows). It is not bit-equal to the
-// plain version, whose torch.sum takes another order.
+// the wrap of int32 arithmetic is associative, so any order of the taps
+// gives the same bits. The recursion keeps the plain version's silent-row
+// substitution (|ac0| < FLT_EPSILON -> 1), its guard (gamma = |ek| > 0 ?
+// num / -ek : 0, one correctly rounded divide), its ek update and its sign
+// convention, but takes the numerator by the Schur recursion instead of a
+// sum: deterministic, the same for a row wherever it sits in the batch (no
+// atomics, nothing across rows), and within rounding of the plain version,
+// not bit-equal to it. tests/torch_levinson_model.py models it step for
+// step, and the card tests hold the kernel to that model bit for bit.
 //
-// The plain recursion runs the full width order + 1 at every step: the
-// entries a[i], i > k + 1, which the triangular form never touches, are
-// 0 until a step's gamma is not finite, then NaN, all of them at once
-// (each gets a[i] + gamma * 0), and each adds a[i] * 0 to the next sums.
-// The kernels carry that as one scalar `tail`, so NaN and +-Inf inputs
-// give NaN in the places the plain version gives it.
+// Bound. The recursion's longest chain a row is, at every step, the divide
+// and ek's update (multiply, subtract, multiply) that the next divide
+// waits for: order x (DDIV + 3 DADD) at the latencies the clock64 probes
+// measure (ddiv_probe_kernel here, dadd_probe_kernel in exact_serial.cu),
+// 136 cycles a step, 0.0088 ms at order 128 at 1.98 GHz; bytes and the
+// FP64 issue rate bound it far below that. The quantizer is a chain of
+// five dependent float64 operations a tap. The predict cascade fills the
+// card: 128 rows x 10240 samples x up to 128 taps of int32 multiply-adds
+// at 64 IMAD/clk/SM x 132 SMs x 1.98 GHz, against the bytes of the
+// order-4 and order-16 calls.
+// chip_smoke.py prints each call's bound and chain bound.
 //
-// Bound. The recursion and the quantizer are a serial chain a row, and the
-// main path gives them few rows: at preset 7 (64-block batches, two
-// channels, four ridges) the quantizer runs 128 rows of 4, 128 and 16
-// taps, each tap five dependent float64 operations (add, add 0.5, floor,
-// clamp, subtract); the order-128 recursion runs 512 rows, each step a sum
-// of up to 129 products, a divide and the update. The bytes and the FP64
-// issue rate bound them far below that chain; chip_smoke.py prints both
-// bounds, the chain at the DADD and DDIV latencies that the clock64 probes
-// (dadd_probe_kernel in exact_serial.cu, ddiv_probe_kernel here) measure.
-// The predict cascade is the one that fills the card: 128 rows x 10240
-// samples x up to 128 taps of int32 multiply-adds, ~10 us at 64
-// IMAD/clk/SM x 132 SMs x 1.98 GHz against ~1.6 us of bytes; a thread
-// takes one sample and reads its taps from shared memory, so two shared
-// loads a multiply-add hold it above that bound.
-//
-// Measured (chip_smoke.py phase 4, NVIDIA H100 80GB HBM3 at 700 W): a
-// 64-block preset-7 batch's calls take 0.154 ms (recursion, 17 calls; the
-// order-128 call 0.054 ms against a 0.013 ms chain at 8.19 cycles a DADD
-// and 111.6 a DDIV), 0.033 ms (quantizer, 3 calls) and 0.068 ms (predict,
-// 3 calls; order 128 0.042 ms against a 0.0085 ms IMAD bound).
+// Measured (chip_pairs.py --kernel: one 64-block preset-7 batch's calls
+// back to back, device time; NVIDIA H100 80GB HBM3 at 700 W): the
+// recursion's 17 calls 0.0837 ms against 0.1512 ms for the one-thread /
+// one-warp design before it in the same call, the order-128 call alone
+// 0.0228 ms against 0.0558 ms (~310 cycles a step by clock64, against the
+// chain bound's 136: a step issues ~110 instructions, 40 of them FP64);
+// the cascade's 3 calls 0.0360 ms against 0.0683 ms for one sample a
+// thread, the order-128 call alone 0.0199 ms against 0.0447 ms.
 
 #include <cstdint>
 
@@ -71,6 +66,69 @@ namespace {
 constexpr int kMaxOrder = 128;
 constexpr double kFltEpsilon = 1.1920928955078125e-07;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// -- clock64 split (measurement builds only) ----------------------------------
+//
+// Built with -DLINNE_CLOCK_SPLIT (chip_pairs.py --split), one thread of each
+// kernel books the clock64 cycles between its marks to slots in registers
+// and adds them to g_split at its end; linne_clock_split copies g_split out
+// and clears it. A mark reads the clock only once `dep`, a value the phase
+// produced, is ready (the read is predicated on a compare of it), so a
+// phase's latency is not booked to the next. The default build has no
+// marks and no g_split.
+constexpr int kSplitSlots = 8;
+#ifdef LINNE_CLOCK_SPLIT
+__device__ long long g_split[kSplitSlots];
+
+__device__ __forceinline__ long long clock_after(long long dep) {
+  long long t;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.eq.s64 p, %1, 0x7ff8dead0badf00d;\n\t"
+      "@!p mov.u64 %0, %%clock64;\n\t"
+      "@p mov.u64 %0, 0;\n\t}"
+      : "=l"(t)
+      : "l"(dep)
+      : "memory");
+  return t;
+}
+__device__ __forceinline__ long long split_bits(double v) {
+  return __double_as_longlong(v);
+}
+__device__ __forceinline__ long long split_bits(int v) { return v; }
+__device__ __forceinline__ long long split_bits(uint32_t v) { return v; }
+
+#define SPLIT_START(on)                          \
+  const bool split_on_ = (on);                   \
+  long long split_acc_[kSplitSlots] = {};        \
+  long long split_t_ = clock_after(0)
+#define SPLIT_MARK(slot, dep)                                      \
+  do {                                                             \
+    if (split_on_) {                                               \
+      const long long split_now_ = clock_after(split_bits(dep));   \
+      split_acc_[slot] += split_now_ - split_t_;                   \
+      split_t_ = split_now_;                                       \
+    }                                                              \
+  } while (0)
+#define SPLIT_END()                                                \
+  do {                                                             \
+    if (split_on_) {                                               \
+      for (int s_ = 0; s_ < kSplitSlots; ++s_) {                   \
+        g_split[s_] += split_acc_[s_];                             \
+      }                                                            \
+    }                                                              \
+  } while (0)
+#else
+#define SPLIT_START(on) \
+  do {                  \
+  } while (0)
+#define SPLIT_MARK(slot, dep) \
+  do {                        \
+  } while (0)
+#define SPLIT_END() \
+  do {              \
+  } while (0)
+#endif
 
 // -- quantize_coefficients ---------------------------------------------------
 
@@ -121,148 +179,210 @@ __global__ void __launch_bounds__(kQThreads)
 //   a[i] += gamma * a[k+1-i] for i <= k+1  (+= gamma * 0 for i > k+1)
 //   parcor[k] = -gamma
 // Entries i > k + 1 all hold `tail` (0, or NaN once a gamma was not
-// finite); a[k + 2] takes it when it joins the sum.
+// finite); a[k + 2] takes it when it joins the update.
+//
+// Schur form. The step's numerator is not summed: with F_k[m] = sum_i
+// a_k[i] c[m-i] and B_k[m] = sum_i a_k[k-i] c[m-i] (F_0 = B_0 = c), each
+// step updates both elementwise,
+//   F_{k+1}[m] = F_k[m] + gamma_k B_k[m-1],
+//   B_{k+1}[m] = B_k[m-1] + gamma_k F_k[m],
+// and num_{k+1} = F_{k+1}[k+2] = F_k[k+2] + gamma_k B_k[k+1], two values
+// known before gamma_k. So the serial chain a step is the divide, one
+// multiply and one add (beside ek's three operations); the updates and
+// the data movement run beside the divide. The kernel keeps them in a
+// frame that moves with the step, Ft_k[j] = F_k[j+k+1] and Bt_k[j] =
+// B_k[j+k]: then num_{k+1} = Ft_k[1] + gamma_k Bt_k[1] always reads entry
+// 1, Bt updates in place (Bt += gamma Ft) and Ft takes (Ft + gamma Bt)
+// one entry down. No entry past k + 1 of a_k (the plain version's
+// `tail`: 0, or NaN once a gamma is not finite) enters num: num_{k+1} is
+// NaN when gamma_k is not finite instead, which is when the plain
+// version's tail turns NaN and carries NaN into every later sum; a lag
+// first reaches num through F_0 = c, as it reaches the plain sum through
+// a[0] = 1, so NaN and +-Inf land in the same places. The update of a
+// runs over every entry, a[k + 1 - i] read as 0 past the row's start, so
+// the entries past k + 1 take gamma * 0 as the plain version's do
+// (tests/torch_levinson_model.py models the kernel step for step).
 
-constexpr int kLvThreadMax = 32;  // the largest order of the thread path
-constexpr int kLvThreads = 128;
-constexpr int kLvWarps = 4;  // rows (one a warp) a CTA of the warp path
-constexpr int kLvSlots = (kMaxOrder + 1 + 31) / 32;  // a[] entries a lane
-constexpr int kLvLen = kMaxOrder + 1;
+constexpr int kLvSlots = 5;      // a[], Ft and Bt entries a lane
+constexpr int kLvThreads = 128;  // a CTA
 
-// One thread a row, a[] and ac[] in registers: a template on the largest
-// order it takes, so that every index is known to the compiler.
-template <int P>
-__global__ void __launch_bounds__(kLvThreads)
-    levinson_thread_kernel(const double* __restrict__ ac,
-                           double* __restrict__ lpc,
-                           double* __restrict__ parcor, int64_t rows,
-                           int order) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kLvThreads + threadIdx.x;
-  if (r >= rows) return;
-  const double* src = ac + r * (order + 1);
-  double c[P + 1];
-#pragma unroll
-  for (int i = 0; i <= P; ++i) c[i] = i <= order ? __ldg(src + i) : 0.0;
-  const bool silent = fabs(c[0]) < kFltEpsilon;
-  if (silent) c[0] = 1.0;
-  double a[P + 2];
-  a[0] = 1.0;
-#pragma unroll
-  for (int i = 1; i < P + 2; ++i) a[i] = 0.0;
-  double ek = c[0];
-  double tail = 0.0;
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    if (k < order) {
-      double num = 0.0;
-#pragma unroll
-      for (int i = 0; i <= k + 1; ++i) {
-        num = __dadd_rn(num, __dmul_rn(a[i], c[k + 1 - i]));
-      }
-      if (k + 2 <= order) num = __dadd_rn(num, __dmul_rn(tail, 0.0));
-      const double gamma = fabs(ek) > 0.0 ? __ddiv_rn(num, -ek) : 0.0;
-      ek = __dmul_rn(ek, __dsub_rn(1.0, __dmul_rn(gamma, gamma)));
-      tail = __dadd_rn(tail, __dmul_rn(gamma, 0.0));
-      double b[P + 2];
-#pragma unroll
-      for (int i = 0; i <= k + 1; ++i) {
-        b[i] = __dadd_rn(a[i], __dmul_rn(gamma, a[k + 1 - i]));
-      }
-#pragma unroll
-      for (int i = 0; i <= k + 1; ++i) a[i] = b[i];
-      a[k + 2] = tail;
-      if (parcor) parcor[r * order + k] = silent ? 0.0 : -gamma;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    if (j < order) lpc[r * order + j] = silent ? 0.0 : a[j + 1];
-  }
+// The least power of two G of lanes a row with G * kLvSlots >= order + 1.
+__host__ __device__ constexpr int levinson_lanes(int order) {
+  int g = 1;
+  while (g * kLvSlots < order + 1) g *= 2;
+  return g;
 }
 
-// One warp's shared memory: ac[] (lag 0 replaced on silent rows), a[]
-// twice (the old and the new by step) and the parcor values.
-struct LvWarp {
-  double c[kLvLen];
-  double a[2][kLvLen];
-  double pc[kMaxOrder];
+// A CTA's rows in shared memory: a[] twice (step k's and step k + 1's),
+// each after kWidth zeros, so that a[k + 1 - i] reads 0 for i > k + 1,
+// and the parcor values; odd strides of doubles, so that rows on
+// neighbouring lanes fall in other banks.
+template <int G>
+struct LvShared {
+  static constexpr int kRows = kLvThreads / G;
+  static constexpr int kWidth = G * kLvSlots;
+  static constexpr int kStride = kWidth | 1;
+  double a[2][kRows][kWidth + kStride];
+  double pc[kRows][kStride];
 };
 
-// One warp a row: lane l holds a[l + 32 m] in registers (own[m]); the sum
-// is each lane's slots in order, then a butterfly of shuffles, which gives
-// every lane the same value (each level adds the same two partial sums).
-// The update reads a[k + 1 - i] from the shared copy of the step's start.
-__global__ void __launch_bounds__(kLvWarps * 32)
-    levinson_warp_kernel(const double* __restrict__ ac,
-                         double* __restrict__ lpc,
-                         double* __restrict__ parcor, int64_t rows,
-                         int order) {
-  __shared__ LvWarp smem[kLvWarps];
-  const int lane = threadIdx.x & 31;
-  const int64_t r =
-      static_cast<int64_t>(blockIdx.x) * kLvWarps + (threadIdx.x >> 5);
-  if (r >= rows) return;  // the whole warp: only __syncwarp below
-  LvWarp& w = smem[threadIdx.x >> 5];
-  const double* src = ac + r * (order + 1);
-  for (int i = lane; i <= order; i += 32) w.c[i] = __ldg(src + i);
-  __syncwarp();
-  const bool silent = fabs(w.c[0]) < kFltEpsilon;
-  __syncwarp();  // every lane has read c[0] before it changes
-  if (silent && lane == 0) w.c[0] = 1.0;
-  double own[kLvSlots];
-#pragma unroll
-  for (int m = 0; m < kLvSlots; ++m) {
-    const int i = lane + 32 * m;
-    own[m] = i == 0 ? 1.0 : 0.0;
-    if (i <= order) w.a[0][i] = own[m];
-  }
-  __syncwarp();
-  double ek = w.c[0];
-  double tail = 0.0;
-  for (int k = 0; k < order; ++k) {
-    const double* old = w.a[k & 1];
-    double* fresh = w.a[(k & 1) ^ 1];
-    double part = 0.0;
-#pragma unroll
-    for (int m = 0; m < kLvSlots; ++m) {
-      const int i = lane + 32 * m;
-      if (i <= k + 1) part = __dadd_rn(part, __dmul_rn(own[m], w.c[k + 1 - i]));
-    }
-#pragma unroll
-    for (int d = 16; d >= 1; d >>= 1) {
-      part = __dadd_rn(part, __shfl_xor_sync(kFullMask, part, d));
-    }
-    double num = part;
-    if (k + 2 <= order) num = __dadd_rn(num, __dmul_rn(tail, 0.0));
-    const double gamma = fabs(ek) > 0.0 ? __ddiv_rn(num, -ek) : 0.0;
-    ek = __dmul_rn(ek, __dsub_rn(1.0, __dmul_rn(gamma, gamma)));
-    tail = __dadd_rn(tail, __dmul_rn(gamma, 0.0));
-#pragma unroll
-    for (int m = 0; m < kLvSlots; ++m) {
-      const int i = lane + 32 * m;
-      if (i <= k + 1) {
-        own[m] = __dadd_rn(own[m], __dmul_rn(gamma, old[k + 1 - i]));
-      } else if (i == k + 2) {
-        own[m] = tail;
-      }
-      if (i <= k + 2 && i <= order) fresh[i] = own[m];
-    }
-    if (lane == 0) w.pc[k] = -gamma;
-    __syncwarp();
-  }
-#pragma unroll
-  for (int m = 0; m < kLvSlots; ++m) {
-    const int i = lane + 32 * m;
-    if (i >= 1 && i <= order) lpc[r * order + i - 1] = silent ? 0.0 : own[m];
-  }
-  if (parcor) {
-    for (int i = lane; i < order; i += 32) {
-      parcor[r * order + i] = silent ? 0.0 : w.pc[i];
-    }
+// Entry I of a row whose lane l holds v[m] = x[l + G m], on every lane.
+template <int G, int I>
+__device__ __forceinline__ double lv_entry(const double (&v)[kLvSlots]) {
+  if constexpr (G == 1) {
+    return v[I];
+  } else {
+    return __shfl_sync(kFullMask, v[I / G], I % G, G);
   }
 }
 
-// -- _predict_dense ------------------------------------------------------------
+// x[j + 1] on lane l for the x[l + G m] = v[m] of a row's G lanes: from
+// the lane above, lane G - 1 from lane 0 a slot higher (0 past the end).
+template <int G>
+__device__ __forceinline__ void lv_shift_down(double (&v)[kLvSlots],
+                                              int lane) {
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int m = 0; m + 1 < kLvSlots; ++m) v[m] = v[m + 1];
+    v[kLvSlots - 1] = 0.0;
+  } else {
+    double up[kLvSlots];
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) {
+      up[m] = __shfl_sync(kFullMask, v[m], (lane + 1) % G, G);
+    }
+#pragma unroll
+    for (int m = 0; m + 1 < kLvSlots; ++m) {
+      v[m] = lane == G - 1 ? up[m + 1] : up[m];
+    }
+    v[kLvSlots - 1] = lane == G - 1 ? 0.0 : up[kLvSlots - 1];
+  }
+}
+
+// gamma_k = num_k / -ek_k (0 where ek_k is 0), taken as -num_k / ek_k
+// (the same bits), from nnum = -num_k; then, in place, -num_{k+1} =
+// -f - gamma_k b with f = F_k[k+2], b = B_k[k+1] (NaN when gamma_k is not
+// finite), and ek_{k+1}.
+__device__ __forceinline__ double lv_gamma(double& nnum, double& ek,
+                                           double f, double b) {
+  const double q = __ddiv_rn(nnum, ek);
+  const double gamma = fabs(ek) > 0.0 ? q : 0.0;
+  nnum = isfinite(gamma) ? __dsub_rn(-f, __dmul_rn(gamma, b))
+                         : __longlong_as_double(0x7ff8000000000000LL);
+  ek = __dmul_rn(ek, __dsub_rn(1.0, __dmul_rn(gamma, gamma)));
+  return gamma;
+}
+
+// G lanes a row, 128 / G rows a CTA (rows are independent: no barrier
+// across the CTA). Lane l holds a[i], Ft[i] and Bt[i] for i = l + G m in
+// registers, reads its lags and writes its results straight from them,
+// and keeps each step's a in shared memory, from which the next update
+// reads the reversed entries a[k + 1 - i].
+//
+// In-order issue sets the loop's shape. Step k's divide runs beside step
+// k - 1's work with gamma_{k-1} (the reads of a's copy, the updates of a,
+// Ft and Bt, and the two values for num_{k+1}: Bt_k[1] and P[2] =
+// Ft_k[1], read before the shift), so that the work fills the divide's
+// latency; the shift and the stores follow it. The divide takes -num /
+// ek, the same bits as num / -ek, so that ek's update feeds the next
+// divide without a negation.
+template <int G>
+__global__ void __launch_bounds__(kLvThreads)
+    levinson_kernel(const double* __restrict__ ac, double* __restrict__ lpc,
+                    double* __restrict__ parcor, int64_t rows, int order) {
+  using Shared = LvShared<G>;
+  constexpr int W = Shared::kWidth;
+  __shared__ Shared sm;
+  const int tid = threadIdx.x;
+  const int g = tid / G;
+  const int lane = tid % G;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * Shared::kRows + g;
+  const bool live = r < rows;  // the rest run along for the shuffles
+  // split slots: 0 loads and set-up, 1 the steps, 2 the stores
+  SPLIT_START(blockIdx.x == 0 && tid == 0);
+  double own[kLvSlots];  // a_k[lane + G m]
+  double ft[kLvSlots];   // Ft_k[lane + G m] = F_k[lane + G m + k + 1]
+  double bt[kLvSlots];   // Bt_k[lane + G m] = B_k[lane + G m + k]
+  double* const a0 = sm.a[0][g];
+  double* const a1 = sm.a[1][g];
+#pragma unroll
+  for (int m = 0; m < kLvSlots; ++m) {
+    const int i = lane + G * m;
+    bt[m] = live && i <= order ? __ldg(ac + r * (order + 1) + i) : 0.0;
+    own[m] = i == 0 ? 1.0 : 0.0;
+    a0[i] = 0.0;  // the zeros before each copy of a[]
+    a1[i] = 0.0;
+    a0[W + i] = own[m];
+  }
+  const double c1 = lv_entry<G, 1>(bt);
+  const double craw = lv_entry<G, 0>(bt);
+  const bool silent = fabs(craw) < kFltEpsilon;
+  const double c0 = silent ? 1.0 : craw;
+  if (lane == 0) bt[0] = c0;
+  // Ft_0[j] = c[j + 1]: Bt_0 one entry down
+#pragma unroll
+  for (int m = 0; m < kLvSlots; ++m) ft[m] = bt[m];
+  lv_shift_down<G>(ft, lane);
+  if constexpr (G > 1) __syncwarp();
+  double ek = c0;
+  // -num_0, with step 0's sum as the plain version takes it: a[0] c[1] +
+  // a[1] c[0]
+  double nnum = -__dadd_rn(__dadd_rn(0.0, c1), __dmul_rn(0.0, c0));
+  SPLIT_MARK(0, nnum);
+  // step 0: nothing pending
+  double gamma = lv_gamma(nnum, ek, lv_entry<G, 1>(ft), lv_entry<G, 1>(bt));
+  for (int k = 1; k < order; ++k) {
+    // step k - 1's work with gamma_{k-1}, beside step k's divide: a_k,
+    // Bt_k, P = Ft_{k-1} + gamma_{k-1} Bt_{k-1}, Ft_k[1] = P[2] and
+    // Bt_k[1]; then Ft_k (P one entry down) and the stores
+    const double* old = sm.a[(k - 1) & 1][g] + W + k - lane;
+    double rv[kLvSlots];  // a_{k-1}[k - i], every read before any store
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) rv[m] = old[-G * m];
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) {
+      const double fo = ft[m];
+      ft[m] = __dadd_rn(fo, __dmul_rn(gamma, bt[m]));
+      bt[m] = __dadd_rn(bt[m], __dmul_rn(gamma, fo));
+      own[m] = __dadd_rn(own[m], __dmul_rn(gamma, rv[m]));
+    }
+    const double pending = gamma;
+    gamma = lv_gamma(nnum, ek, lv_entry<G, 2>(ft), lv_entry<G, 1>(bt));
+    lv_shift_down<G>(ft, lane);
+    double* fresh = sm.a[k & 1][g] + W + lane;
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) fresh[G * m] = own[m];
+    if (lane == 0) sm.pc[g][k - 1] = -pending;
+    if constexpr (G > 1) __syncwarp();  // a_k's copy, for the next update
+  }
+  {
+    // the last step's update of a
+    const double* old = sm.a[(order - 1) & 1][g] + W + order - lane;
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) {
+      own[m] = __dadd_rn(own[m], __dmul_rn(gamma, old[-G * m]));
+    }
+    if (lane == 0) sm.pc[g][order - 1] = -gamma;
+  }
+  SPLIT_MARK(1, own[0]);
+  if constexpr (G > 1) __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < kLvSlots; ++m) {
+      const int i = lane + G * m;
+      if (i >= 1 && i <= order) {
+        lpc[r * order + i - 1] = silent ? 0.0 : own[m];
+      }
+      if (parcor && i < order) {
+        parcor[r * order + i] = silent ? 0.0 : sm.pc[g][i];
+      }
+    }
+  }
+  SPLIT_MARK(2, 0);
+  SPLIT_END();
+}
+
+// -- _predict_dense ----------------------------------------------------------
 //
 // Per row: u = 1 << log2u, npu = order >> log2u, ns = n >> log2u. Sample g
 // of real unit g / ns, at offset g % ns, is
@@ -275,51 +395,202 @@ __global__ void __launch_bounds__(kLvWarps * 32)
 // torch's: `1 << b` is 0 and `a >> b` fills with the sign for b outside
 // [0, 31].
 
-constexpr int kPdTile = 256;  // samples a CTA, one a thread
+//
+// Register tiling. A thread computes kPdG consecutive outputs from a window
+// of samples in registers: each tap's coefficient is read once for all of
+// them (a shared-memory broadcast), and the window slides four taps at a
+// time by one 16-byte load, so a multiply-add costs 1/32 of a shared load
+// where one output a thread cost two. The coefficients sit in shared
+// memory reversed per unit and padded with zeros to a multiple of four
+// taps (cr[unit * npu4 + k - 1] = c[unit * npu + npu - k]), so every tap
+// block is four taps and one aligned load; each thread fetches its
+// coefficient beside the samples and puts it in place once log2u is
+// known, so the CTA waits for one round of loads, not two. A CTA takes
+// kPdTile samples of one row after a history of kPdHist, staged by 16-byte
+// loads where the row allows them: at n = 10240, 640 CTAs, one wave at 5
+// a SM. At n = 10240 a unit has 80 << (7 - log2u) samples, so a thread's
+// outputs never straddle two units; where they do (other n), the thread
+// takes each output on its own. Tensor cores do not fit: a unit has one
+// coefficient vector, so the product has width 1.
 
-__global__ void __launch_bounds__(kPdTile)
+// N int32 from 16-byte-aligned shared memory into v[0, N), 16 bytes a
+// load
+template <int N, int M>
+__device__ __forceinline__ void pd_load(int32_t (&v)[M], const int32_t* p) {
+  static_assert(N % 4 == 0 && N <= M, "whole 16-byte loads");
+#pragma unroll
+  for (int t = 0; t < N; t += 4) {
+    const int4 q = *reinterpret_cast<const int4*>(p + t);
+    v[t] = q.x;
+    v[t + 1] = q.y;
+    v[t + 2] = q.z;
+    v[t + 3] = q.w;
+  }
+}
+
+constexpr int kPdThreads = 128;
+constexpr int kPdG = 16;                         // outputs a thread
+constexpr int kPdTile = kPdThreads * kPdG;       // samples a CTA
+constexpr int kPdHist = kMaxOrder;               // history before a tile
+constexpr int kPdCoefs = kMaxOrder * 4;          // u * npu4 <= order + 3 u
+static_assert(kPdThreads >= kMaxOrder, "a coefficient a thread");
+
+__global__ void __launch_bounds__(kPdThreads)
     predict_kernel(const int32_t* __restrict__ x,
                    const int32_t* __restrict__ coefs,
                    const int32_t* __restrict__ log2u,
                    const int32_t* __restrict__ rshift,
                    int32_t* __restrict__ out, int64_t tiles, int n,
                    int order) {
-  __shared__ int32_t xs[kMaxOrder + kPdTile];
-  __shared__ int32_t cs[kMaxOrder];
+  __shared__ __align__(16) int32_t xs[kPdHist + kPdTile];
+  __shared__ __align__(16) int32_t cr[kPdCoefs];
+  const int tid = threadIdx.x;
+  // split slots: 0 staging and the barrier, 1 set-up of the taps, 2 the
+  // taps, 3 the residuals and the stores
+  SPLIT_START(blockIdx.x == 1 && tid == 0);
   const int64_t row = blockIdx.x / tiles;
   const int g0 = static_cast<int>(blockIdx.x - row * tiles) * kPdTile;
+  const int l2 = __ldg(log2u + row);
+  const int rs = __ldg(rshift + row);
+  const int32_t cv = tid < order ? __ldg(coefs + row * order + tid) : 0;
   const int32_t* xr = x + row * n;
-  for (int i = threadIdx.x; i < order + kPdTile; i += kPdTile) {
-    const int g = g0 - order + i;
-    xs[i] = (g >= 0 && g < n) ? __ldg(xr + g) : 0;
+  // xs[h] = x[g0 - kPdHist + h], 0 outside the row
+  const int base = g0 - kPdHist;
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+    const int4 zero = make_int4(0, 0, 0, 0);
+    for (int q = tid; q < (kPdHist + kPdTile) / 4; q += kPdThreads) {
+      const int g = base + 4 * q;  // a multiple of 4, as n is
+      reinterpret_cast<int4*>(xs)[q] =
+          (g >= 0 && g < n) ? __ldg(reinterpret_cast<const int4*>(xr + g))
+                            : zero;
+    }
+  } else {
+    for (int h = tid; h < kPdHist + kPdTile; h += kPdThreads) {
+      const int g = base + h;
+      xs[h] = (g >= 0 && g < n) ? __ldg(xr + g) : 0;
+    }
   }
-  for (int i = threadIdx.x; i < order; i += kPdTile) {
-    cs[i] = __ldg(coefs + row * order + i);
+  const int npu = order >> l2;
+  const int npu4 = (npu + 3) & ~3;
+  const int units = npu4 ? min(1 << l2, kPdCoefs / npu4) : 0;
+  // c[tid] is tap npu - (tid - unit * npu) of its unit; the padding is 0
+  if (tid < units * npu) {
+    const int unit = tid / npu;
+    cr[unit * npu4 + npu - 1 - (tid - unit * npu)] = cv;
+  }
+  for (int e = tid; e < units * (npu4 - npu); e += kPdThreads) {
+    const int unit = e / (npu4 - npu);
+    cr[unit * npu4 + npu + (e - unit * (npu4 - npu))] = 0;
   }
   __syncthreads();
-  const int g = g0 + threadIdx.x;
-  if (g >= n) return;
-  const int l2 = __ldg(log2u + row);
-  const int npu = order >> l2;
+  SPLIT_MARK(0, xs[kPdHist]);
   const int ns = max(n >> l2, 1);  // log2u <= log2(u_max) by contract
-  const int unit = g / ns;
-  const int32_t xv = xs[order + threadIdx.x];
-  if (g - unit * ns < npu) {
-    out[row * n + g] = xv;
-    return;
-  }
-  const int rs = __ldg(rshift + row);
+  const int g = g0 + tid * kPdG;
+  if (g >= n) return;
   const uint32_t half = (rs >= 1 && rs <= 32) ? (1u << (rs - 1)) : 0u;
   const int shift = (rs < 0 || rs > 31) ? 31 : rs;
-  const int32_t* cu = cs + unit * npu + npu;  // cu[-k]: tap age k
-  const int32_t* xk = xs + order + threadIdx.x;  // xk[-k] = x[g - k]
-  uint32_t acc = half;
-  for (int k = 1; k <= npu; ++k) {
-    acc += static_cast<uint32_t>(cu[-k]) * static_cast<uint32_t>(xk[-k]);
+  const int h = kPdHist + tid * kPdG;  // xs index of sample g
+  const int last = min(g + kPdG, n) - 1;
+  const int unit = g / ns;
+  uint32_t acc[kPdG];
+  uint32_t kept = 0;  // bit j: output j is predicted (past its unit's head)
+  if (last / ns == unit) {
+    const int offset = g - unit * ns;
+#pragma unroll
+    for (int j = 0; j < kPdG; ++j) kept |= (offset + j >= npu ? 1u : 0u) << j;
+#pragma unroll
+    for (int j = 0; j < kPdG; ++j) acc[j] = half;
+    const int32_t* cu = cr + unit * npu4;
+    SPLIT_MARK(1, acc[0]);
+    int kb = 0;  // taps done
+    if (npu4 >= 16) {
+      // sixteen taps a pass: w[t] = xs[h - kb - 16 + t], so tap kb + 1 + e
+      // of output j is w[15 - e + j]; the window slides by 16 a pass, so
+      // that it moves kPdG / 4 registers a tap block, not kPdG
+      int32_t w[kPdG + 16];
+      pd_load<kPdG + 16>(w, xs + h - 16);
+      for (; kb + 16 <= npu4; kb += 16) {
+        int32_t cd[16];
+        pd_load<16>(cd, cu + kb);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+#pragma unroll
+          for (int j = 0; j < kPdG; ++j) {
+            acc[j] += static_cast<uint32_t>(cd[e]) *
+                      static_cast<uint32_t>(w[15 - e + j]);
+          }
+        }
+#pragma unroll
+        for (int t = kPdG + 15; t >= 16; --t) w[t] = w[t - 16];
+        if (kb + 32 <= npu4) pd_load<16>(w, xs + h - kb - 32);
+      }
+    }
+    if (kb < npu4) {
+      // four taps a pass: win[t] = xs[h - kb - 4 + t], tap kb + 1 + d of
+      // output j is win[3 - d + j]
+      int32_t win[kPdG + 4];
+      pd_load<kPdG + 4>(win, xs + h - kb - 4);
+      for (; kb < npu4; kb += 4) {
+        int32_t cd[4];
+        pd_load<4>(cd, cu + kb);
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+#pragma unroll
+          for (int j = 0; j < kPdG; ++j) {
+            acc[j] += static_cast<uint32_t>(cd[d]) *
+                      static_cast<uint32_t>(win[3 - d + j]);
+          }
+        }
+        // (the window stays inside xs: kb + 8 <= npu4 <= 128 = kPdHist)
+#pragma unroll
+        for (int t = kPdG + 3; t >= 4; --t) win[t] = win[t - 4];
+        if (kb + 8 <= npu4) pd_load<4>(win, xs + h - kb - 8);
+      }
+    }
+    SPLIT_MARK(2, acc[kPdG - 1]);
+  } else {
+    // the thread's outputs straddle two units: each on its own
+#pragma unroll
+    for (int j = 0; j < kPdG; ++j) {
+      const int gj = min(g + j, last);
+      const int uj = gj / ns;
+      kept |= (gj - uj * ns >= npu ? 1u : 0u) << j;
+      const int32_t* cu = cr + uj * npu4;
+      acc[j] = half;
+      for (int k = 1; k <= npu; ++k) {
+        acc[j] += static_cast<uint32_t>(cu[k - 1]) *
+                  static_cast<uint32_t>(xs[h + j - k]);
+      }
+    }
   }
-  const int32_t pred = static_cast<int32_t>(acc) >> shift;
-  out[row * n + g] = static_cast<int32_t>(static_cast<uint32_t>(xv) +
-                                          static_cast<uint32_t>(pred));
+  int32_t* o = out + row * n + g;
+  const bool vec =
+      last == g + kPdG - 1 && (reinterpret_cast<uintptr_t>(o) & 15) == 0;
+#pragma unroll
+  for (int t = 0; t < kPdG; t += 4) {
+    const int4 v = *reinterpret_cast<const int4*>(xs + h + t);
+    const int32_t xv[4] = {v.x, v.y, v.z, v.w};
+    int32_t res[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int32_t pred = static_cast<int32_t>(acc[t + d]) >> shift;
+      res[d] = (kept >> (t + d)) & 1u
+                   ? static_cast<int32_t>(static_cast<uint32_t>(xv[d]) +
+                                          static_cast<uint32_t>(pred))
+                   : xv[d];
+    }
+    if (vec) {
+      *reinterpret_cast<int4*>(o + t) = make_int4(res[0], res[1], res[2],
+                                                  res[3]);
+    } else {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        if (g + t + d <= last) o[t + d] = res[d];
+      }
+    }
+  }
+  SPLIT_MARK(3, acc[0]);
+  SPLIT_END();
 }
 
 // A dependent chain of n __ddiv_rn in one warp (a <- x / a stays near
@@ -337,13 +608,13 @@ __global__ void ddiv_probe_kernel(double x, int n, long long* cycles,
   if (threadIdx.x == 0) *cycles = t1 - t0;
 }
 
-template <int P>
-void levinson_thread(const double* ac, double* lpc, double* parcor,
+template <int G>
+void levinson_launch(const double* ac, double* lpc, double* parcor,
                      int64_t rows, int order, cudaStream_t st) {
-  const auto grid =
-      static_cast<unsigned>((rows + kLvThreads - 1) / kLvThreads);
-  levinson_thread_kernel<P><<<grid, kLvThreads, 0, st>>>(ac, lpc, parcor,
-                                                          rows, order);
+  constexpr int R = kLvThreads / G;
+  const auto grid = static_cast<unsigned>((rows + R - 1) / R);
+  levinson_kernel<G><<<grid, kLvThreads, 0, st>>>(ac, lpc, parcor, rows,
+                                                   order);
 }
 
 }  // namespace
@@ -376,25 +647,29 @@ extern "C" int linne_levinson_durbin(const double* ac, double* lpc,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  if (order > kLvThreadMax) {
-    const auto grid = static_cast<unsigned>((rows + kLvWarps - 1) / kLvWarps);
-    levinson_warp_kernel<<<grid, kLvWarps * 32, 0, st>>>(ac, lpc, parcor,
-                                                         rows, order);
-  } else if (order > 16) {
-    levinson_thread<32>(ac, lpc, parcor, rows, order, st);
-  } else if (order > 8) {
-    levinson_thread<16>(ac, lpc, parcor, rows, order, st);
-  } else if (order > 4) {
-    levinson_thread<8>(ac, lpc, parcor, rows, order, st);
-  } else if (order > 2) {
-    levinson_thread<4>(ac, lpc, parcor, rows, order, st);
-  } else if (order > 1) {
-    levinson_thread<2>(ac, lpc, parcor, rows, order, st);
-  } else {
-    levinson_thread<1>(ac, lpc, parcor, rows, order, st);
+  switch (levinson_lanes(order)) {
+    case 1: levinson_launch<1>(ac, lpc, parcor, rows, order, st); break;
+    case 2: levinson_launch<2>(ac, lpc, parcor, rows, order, st); break;
+    case 4: levinson_launch<4>(ac, lpc, parcor, rows, order, st); break;
+    case 8: levinson_launch<8>(ac, lpc, parcor, rows, order, st); break;
+    case 16: levinson_launch<16>(ac, lpc, parcor, rows, order, st); break;
+    default: levinson_launch<32>(ac, lpc, parcor, rows, order, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef LINNE_CLOCK_SPLIT
+// out[0..7] <- the cycles booked to each split slot since the last call,
+// which clears them (synchronous).
+extern "C" int linne_clock_split(long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, sizeof(g_split));
+  if (err == cudaSuccess) {
+    const long long zeros[kSplitSlots] = {};
+    err = cudaMemcpyToSymbol(g_split, zeros, sizeof(g_split));
+  }
+  return static_cast<int>(err);
+}
+#endif
 
 // cycles[0] <- the clock64 cycles of a chain of n dependent __ddiv_rn in
 // one warp (out [32] float64 keeps the chain live), launched on stream.
@@ -419,7 +694,7 @@ extern "C" int linne_predict_dense(const int32_t* x, const int32_t* coefs,
   const int64_t tiles = (n + kPdTile - 1) / kPdTile;
   const int64_t ctas = rows * tiles;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  predict_kernel<<<static_cast<unsigned>(ctas), kPdTile, 0,
+  predict_kernel<<<static_cast<unsigned>(ctas), kPdThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       x, coefs, log2u, rshift, out, tiles, n, order);
   return static_cast<int>(cudaGetLastError());

@@ -18,9 +18,10 @@ tensor's own device and its current stream. `KERNEL_LAUNCHES[name]` counts
 each kernel's launches.
 
 The quantizer and the predict cascade are bit-equal to their plain
-versions. The recursion sums a . s in its own order (serial in a thread,
-a fixed shuffle tree in a warp), so it agrees with its plain version to
-rounding, deterministically and wherever a row sits in the batch.
+versions. The recursion takes each step's numerator in Schur form (the
+forward and backward correlations updated elementwise, no sum), so it
+agrees with its plain version to rounding, deterministically and wherever
+a row sits in the batch.
 """
 
 from __future__ import annotations
@@ -171,6 +172,17 @@ def predict_dense(x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
                 log2u.data_ptr(), rshift.data_ptr(), out.data_ptr(), rows, n,
                 order)
     return out
+
+
+def levinson_lanes(order: int) -> int:
+    """The lanes a row of the recursion's kernel: the least power of two G
+    with 5 G >= order + 1 (a lane holds five coefficients); a CTA runs
+    128 / G rows."""
+    _check_order(order)
+    lanes = 1
+    while 5 * lanes < order + 1:
+        lanes *= 2
+    return lanes
 
 
 def ddiv_cycles(device="cuda") -> float:

@@ -26,12 +26,14 @@ import pytest
 import torch
 
 from conftest import REPO_ROOT
+from linne_tpu.exact import lpc as JL
 from linne_tpu.ops import analysis as JA
 from linne_tpu.ops import intops as JI
 from linne_tpu_torch.ops import analysis as A
 from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import intops as I
 from linne_tpu_torch.presets import PRESETS
+from torch_levinson_model import lanes_for, levinson_schur
 
 RTOL, ATOL = 1e-9, 1e-12
 
@@ -98,6 +100,24 @@ def test_levinson_plain_matches_jax(order):
     check_levinson([t.numpy() for t in got], [np.asarray(w) for w in want])
 
 
+@pytest.mark.parametrize("order", [1, 32, 33, 64, 128])
+def test_levinson_schur_model_matches_jax(order):
+    """The kernel's order of operations (tests/torch_levinson_model.py: the
+    numerator in Schur form, F_k[k+2] + gamma_k B_k[k+1], with the NaN rule
+    in place of the tail) against the JAX package: the same tolerance and
+    special rows as the plain version, and r0 = +Inf appended (every lpc
+    value NaN)."""
+    ac = np.concatenate([levinson_rows(order, order),
+                         np.full((1, order + 1), 0.5)])
+    ac[10, 0] = np.inf
+    got = levinson_schur(_t(ac), order, with_parcor=True)
+    want = jax.jit(JA.levinson_durbin, static_argnums=(1, 2))(
+        jnp.asarray(ac), order, True)
+    check_levinson([t.numpy() for t in got], [np.asarray(w) for w in want])
+    assert np.isnan(got[0][10].numpy()).all() and np.isnan(got[1][10, 0])
+    assert lanes_for(order) == AS.levinson_lanes(order)
+
+
 # -- quantize_coefficients ---------------------------------------------------
 
 
@@ -139,6 +159,23 @@ def test_quantize_plain_matches_jax(order):
     assert rs[4] == 8 and not q[4].any()           # at the threshold
     assert rs[5] != 8 and q[5].any()               # just above it
     assert rs[6] == rs[7] == 5 and q[7].abs().min() >= 126  # near the cap
+
+
+@pytest.mark.parametrize("shift", [3, 7, 12])
+def test_quantize_plain_ties_match_host_oracle(shift):
+    """Exact .5 ties at rshift 3, 7 and 12, where XLA's CPU exp2 is
+    inexact, held bit for bit to the JAX package's host quantizer
+    (linne_tpu/exact/lpc.py), which scales by math.pow(2.0, rshift)."""
+    order = 32
+    c = quantize_rows(order, shift, tie_shift=shift)
+    q, rs = A._quantize_coefficients_plain(_t(c), 8)
+    for r in range(c.shape[0]):
+        want_q, want_rs = JL.quantize_coefficients(c[r], order, 8)
+        assert np.array_equal(q[r].numpy(), want_q), r
+        assert int(rs[r]) == want_rs, r
+    assert rs[6] == rs[7] == shift and q[7].abs().min() >= 126
+    ties = c[6] * 2.0 ** shift
+    assert np.any(ties != np.round(ties))  # the row holds .5 steps
 
 
 # -- _predict_dense ----------------------------------------------------------

@@ -33,6 +33,7 @@ from linne_tpu_torch.ops import intops as I
 from linne_tpu_torch.ops import synthesis as S
 from linne_tpu_torch.parallel.mesh import shards
 from linne_tpu_torch.presets import PRESETS
+from torch_levinson_model import lanes_for, levinson_schur
 
 pytestmark = pytest.mark.cuda
 
@@ -756,19 +757,20 @@ def _scan(name, *args):
     return got
 
 
-def _quantize_rows(order, seed):
+def _quantize_rows(order, seed, shift=7):
     """Seeded rows at three scales, an all-zero row, rows at and just above
-    the 2^-7 threshold, exact .5 ties at rshift 7, error feedback near the
-    +-128 clamp."""
+    the 2^-7 threshold, exact .5 ties at rshift `shift` (row 6: max |c| =
+    96 * 2^-shift sets the shift), error feedback near the +-128 clamp."""
     rng = np.random.default_rng(seed)
+    step = 2.0 ** -shift
     c = rng.normal(0, 0.3, (8, order)) * np.array(
         [1e-2, 1.0, 4.0, 0.0, 1.0, 1.0, 1.0, 1.0])[:, None]
     c[4] = 2.0 ** -7
     c[5] = np.where(np.arange(order) % 2, -1, 1) * 2.0 ** -7 * (1 + 2e-16)
     c[6] = (rng.integers(-64, 64, order)
-            + 0.5 * rng.integers(0, 2, order)) * 2.0 ** -7
-    c[6, 0] = 0.75
-    c[7] = np.where(np.arange(order) % 3, 127.49, -127.87) * 2.0 ** -7
+            + 0.5 * rng.integers(0, 2, order)) * step
+    c[6, 0] = 96 * step
+    c[7] = np.where(np.arange(order) % 3, 127.49, -127.87) * step
     return torch.from_numpy(c).cuda()
 
 
@@ -780,6 +782,25 @@ def test_scans_quantize_kernel_matches_plain_version(order):
     want = A._quantize_coefficients_plain(c, 8)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[1][3] == 8 and got[1][4] == 8 and got[1][6] == 7
+
+
+@pytest.mark.parametrize("shift", [3, 7, 12])
+def test_scans_quantize_kernel_ties(shift):
+    """Exact .5 ties at rshift 3, 7 and 12 (the error feedback meets them
+    on row 6): the kernel bit for bit the plain version and the port's host
+    quantizer (exact/lpc.py), which scales by math.pow(2.0, rshift)."""
+    _require_card()
+    from linne_tpu_torch.exact import lpc as HL
+
+    order = 32
+    c = _quantize_rows(order, shift, shift)
+    got = _scan("quantize_coefficients", c, 8)
+    want = A._quantize_coefficients_plain(c, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for r, row in enumerate(c.cpu().numpy()):
+        q, rs = HL.quantize_coefficients(row, order, 8)
+        assert np.array_equal(got[0][r].cpu().numpy(), q) and got[1][r] == rs
+    assert got[1][6] == got[1][7] == shift
 
 
 def _scan_levinson_rows(rows, order, seed):
@@ -812,8 +833,8 @@ def _check_scan_levinson(ac, order, with_parcor, exact_rows=(0,)):
 @pytest.mark.parametrize("order", [1, 2, 4, 16, 31, 32, 33, 64, 127, 128])
 def test_scans_levinson_kernel_matches_plain_version(order, with_parcor):
     """Seeded rows, a silent row, [1, 1, ...] (ek exactly 0 after the first
-    step), a pure tone, a NaN lag, +-Inf lags and r0 = +Inf, on the thread
-    path (to order 32) and the warp path."""
+    step), a pure tone, a NaN lag, +-Inf lags and r0 = +Inf, at orders
+    around the lanes-a-row templates."""
     _require_card()
     ac = _scan_levinson_rows(14, order, order)
     lags = torch.arange(order + 1, dtype=torch.float64, device="cuda")
@@ -836,6 +857,41 @@ def test_scans_levinson_kernel_preset7_calls(units, order):
     ac = _scan_levinson_rows(8 * units, order, units)
     for with_parcor in (False, True):
         _check_scan_levinson(ac, order, with_parcor)
+
+
+def _nan_zero(t):
+    return torch.where(t.isnan(), 0.0, t)
+
+
+@pytest.mark.parametrize("order", range(1, 129))
+def test_scans_levinson_kernel_every_order(order):
+    """Every order 1-128 (each lanes-a-row template and their edges), at a
+    row count that is no multiple of a CTA's rows, with a silent row,
+    [1, 1, ...], a pure tone, a NaN lag, +-Inf lags and r0 = +Inf: within
+    the tolerance of the plain version, and bit for bit the kernel's
+    Schur-form model (tests/torch_levinson_model.py), with and without
+    parcor."""
+    _require_card()
+    rows = 3 * (128 // lanes_for(order)) + 5
+    ac = _scan_levinson_rows(rows, order, order)
+    lags = torch.arange(order + 1, dtype=torch.float64, device="cuda")
+    ac[1] = 0.0
+    ac[2] = 1.0
+    ac[3] = torch.cos(0.3 * lags)
+    ac[4, min(order, 3)] = float("nan")
+    ac[rows // 2, 1] = float("inf")
+    ac[rows - 2, order] = -float("inf")
+    ac[rows - 1, 0] = float("inf")
+    got = _check_scan_levinson(ac, order, True, exact_rows=(0, 1, 2))
+    want = levinson_schur(ac.cpu(), order, True)
+    for g, w in zip(got, want):
+        # NaN in the same places; the card's and the CPU's NaN bits differ
+        g = g.cpu()
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(_bits(_nan_zero(g)), _bits(_nan_zero(w)))
+    lpc = _scan("levinson_durbin", ac, order, False)
+    assert torch.equal(lpc.isnan(), got[0].isnan())
+    assert torch.equal(_bits(_nan_zero(lpc)), _bits(_nan_zero(got[0])))
 
 
 def _scan_layers():
@@ -867,6 +923,31 @@ def _predict_rows(order, choices, n, seed):
 def test_scans_predict_kernel_matches_plain_version(order, choices, n):
     _require_card()
     args = _predict_rows(order, choices, n, order + n) + (max(choices),)
+    assert torch.equal(_scan("predict_dense", *args),
+                       I._predict_dense_plain(*args))
+
+
+# (order, unit choices, n): n that neither the 2048-sample tile nor the
+# 16 outputs a thread divide; n = 1152 and 1056 give units of 9 and 33
+# samples (a thread's outputs straddle two units); a row shorter than
+# its history; npu 1 and 128 in one call
+_PREDICT_EDGES = [(4, (1, 2, 4), 1500), (4, (1, 2, 4), 12),
+                  (16, (1, 2), 2050), (128, (1, 2), 1030), (1, (1,), 1001),
+                  (128, (1, 2, 4, 8, 16, 32, 64, 128), 1152),
+                  (32, (1, 2, 4, 8, 16, 32), 1056)]
+
+
+@pytest.mark.parametrize("order,choices,n", _PREDICT_EDGES)
+def test_scans_predict_kernel_edges(order, choices, n):
+    """The register-tiled cascade at its edges, every log2u of the choices
+    in one call, with rshift 0, 32 and 40 (no rounding offset; torch's
+    shifts out of range) beside 1..15: bit for bit the plain version."""
+    _require_card()
+    x, c, log2u, rsh = _predict_rows(order, choices, n, order + n)
+    rsh[0], rsh[-1] = 0, 32
+    if rsh.shape[0] > 2:
+        rsh[1] = 40
+    args = (x, c, log2u, rsh, max(choices))
     assert torch.equal(_scan("predict_dense", *args),
                        I._predict_dense_plain(*args))
 
