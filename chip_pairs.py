@@ -23,27 +23,39 @@ levinson_serial, serial_abs_mean or chain_predict; --autocorr is
 --kernel autocorr_serial) it times only that kernel: "<kernel>_chunk_ms",
 "<kernel>_call_ms" (each call alone, [argument shapes, median ms of 7])
 and "<kernel>_digest" (a hash of the chunk's outputs, equal for
-checkouts that give the same bits). --kernel levinson_durbin and --kernel
-predict_dense (analysis_scans) take instead every call of that kernel in
-one 64-block preset-7 batch of the corpus, recorded through
-TorchEncoder's analysis as chip_smoke.py's phase 4 records them: the same
-three keys, "<kernel>_chunk_ms" then the batch's calls. With --calls FILE
-the recorded calls are read from FILE when it exists and written to it
-when it does not, so that two checkouts time the same inputs (predict's
-inputs come from the recursion, which two builds may round apart).
---split NAME (levinson_durbin or predict_dense) builds ROOT's
-analysis_scans.cu with -DLINNE_CLOCK_SPLIT (the kernels' clock64 marks)
-into a temporary directory and runs each of the batch's calls of NAME
-once through that build: "<kernel>_split" lists [argument shapes, cycles
-a slot] for each call, the cycles one thread of the kernel spent between
-its marks (the slots are named in the source). Run it for the two
-checkouts in alternating turns (A B B A A B) in one call, so both see the
-same card and host.
+checkouts that give the same bits). --kernel levinson_durbin, --kernel
+predict_dense and --kernel quantize_coefficients (analysis_scans) take
+instead every call of that kernel in one 64-block preset-7 batch of the
+corpus, recorded through TorchEncoder's analysis as chip_smoke.py's phase
+4 records them: the same three keys, "<kernel>_chunk_ms" then the batch's
+calls, and "<kernel>_burst_ms" (chip_smoke.py phase 4's measure: the
+batch's calls five times back to back behind a spin, the least of three). The quantizer's batch is its layers: one grouped call
+(quantize_layers) on a checkout that has it, else one call a layer
+(quantize_coefficients); its digest hashes each layer's int coefficients
+and rshifts, the same for either form. --kernel quantize_layer takes the
+byte-exact fit's quantizer over the layers of one 128-row preset-7 fit
+chunk of the corpus (the fit's final params): one launch of
+quantize_layers_exact where the checkout has it, else its
+exact_device._quantize_layer a layer (a torch loop over the taps); the
+digest also hashes the two margins folded over the layers. With --calls
+FILE the recorded calls are read from FILE when it exists and written to
+it when it does not, so that two checkouts time the same inputs
+(predict's inputs come from the recursion, which two builds may round
+apart). --split NAME (levinson_durbin, predict_dense or
+quantize_coefficients) builds ROOT's analysis_scans.cu with
+-DLINNE_CLOCK_SPLIT (the kernels' clock64 marks) into a temporary
+directory and runs each of the batch's calls of NAME once through that
+build: "<kernel>_split" lists [argument shapes, cycles a slot] for each
+call, the cycles one thread of the kernel spent between its marks (the
+slots are named in the source). Run it for the two checkouts in
+alternating turns (A B B A A B) in one call, so both see the same card and
+host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import json
 import pathlib
@@ -96,7 +108,9 @@ def preset7_autocorr_calls():
 KERNELS = ("autocorr_serial", "levinson_serial", "serial_abs_mean",
            "chain_predict")
 # the batched encode's analysis_scans kernels that --kernel and --split take
-SCAN_KERNELS = ("levinson_durbin", "predict_dense")
+SCAN_KERNELS = ("levinson_durbin", "predict_dense", "quantize_coefficients")
+# the C entry of an analysis_scans kernel where it has another name
+ENTRY = {"quantize_coefficients": "quantize_layers"}
 # the keys of a kernel's numbers in the JSON line
 SHORT = {"autocorr_serial": "autocorr", "levinson_serial": "levinson",
          "serial_abs_mean": "abs_mean", "chain_predict": "chain_predict"}
@@ -155,10 +169,20 @@ def batch_blocks(torch, count: int = 64):
     return torch.from_numpy(np.stack(blocks[:count])).cuda()
 
 
+def quantize_wrapper(AS):
+    """The batched encoder's quantizer wrapper of a checkout: the grouped
+    one where it has it."""
+    return "quantize_layers" if hasattr(AS, "quantize_layers") else (
+        "quantize_coefficients")
+
+
 def batch_scan_calls(torch, name: str, calls_file=None):
     """The argument tuples of an analysis_scans kernel's calls in one
     64-block preset-7 batch, recorded while TorchEncoder's analysis runs
-    it; with calls_file, read from it when it exists, else written to it."""
+    it; with calls_file, read from it when it exists, else written to it.
+    The quantizer's are kept a layer, (coefs, nbits) each, whichever
+    wrapper the checkout's encoder calls (scan_calls turns them into that
+    wrapper's calls)."""
     from linne_tpu_torch.codec.encoder import TorchEncoder
     from linne_tpu_torch.codec.params import EncodeParameter
     from linne_tpu_torch.ops import analysis_scans as AS
@@ -166,6 +190,8 @@ def batch_scan_calls(torch, name: str, calls_file=None):
     if calls_file is not None and calls_file.exists():
         return [tuple(a.cuda() if isinstance(a, torch.Tensor) else a
                       for a in args) for args in torch.load(calls_file)]
+    wrapper = quantize_wrapper(AS) if name == "quantize_coefficients" \
+        else name
     enc = TorchEncoder(device="cuda")
     enc.set_encode_parameter(EncodeParameter(
         num_channels=2, bits_per_sample=16, sampling_rate=RATE,
@@ -174,24 +200,93 @@ def batch_scan_calls(torch, name: str, calls_file=None):
     blocks = batch_blocks(torch)
     analyze(blocks)  # warm: cuBLAS handles, the kernels' library
     calls = []
-    real = getattr(AS, name)
+    real = getattr(AS, wrapper)
 
     def record(*args):
-        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                           for a in args))
+        if wrapper == "quantize_layers":  # a layer a tuple
+            calls.extend((c.clone(), args[1]) for c in args[0])
+        else:
+            calls.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args))
         return real(*args)
 
-    setattr(AS, name, record)
+    setattr(AS, wrapper, record)
     try:
         analyze(blocks)
     finally:
-        setattr(AS, name, real)
+        setattr(AS, wrapper, real)
     torch.cuda.synchronize()
     if calls_file is not None:
         calls_file.parent.mkdir(parents=True, exist_ok=True)
         torch.save([tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                           for a in args) for args in calls], calls_file)
     return calls
+
+
+def scan_calls(AS, name: str, calls):
+    """(wrapper, its argument tuples) for a kernel's recorded calls: the
+    quantizer's layers as one grouped call where the checkout has it."""
+    if name == "quantize_coefficients" and quantize_wrapper(AS) == (
+            "quantize_layers"):
+        return AS.quantize_layers, [([c for c, _ in calls], calls[0][1])]
+    return getattr(AS, name), calls
+
+
+def exact_quant_calls(torch):
+    """(wrapper, its argument tuples) of the byte-exact fit's quantizer on
+    one 128-row preset-7 fit chunk of the corpus (the fit's final params,
+    layers 4, 128, 16): quantize_layers_exact once where the checkout has
+    it, else exact_device._quantize_layer a layer."""
+    from linne_tpu_torch.codec.params import EncodeParameter
+    from linne_tpu_torch.exact import device_encoder as DE
+    from linne_tpu_torch.ops import analysis_scans as AS
+    from linne_tpu_torch.ops import exact_device as ED
+    from linne_tpu_torch.presets import PRESETS
+
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=RATE,
+        num_samples_per_block=SPB, preset=7, ch_process_method=1)
+    planes = []
+    for t in (make_track(30.0, seed) for seed in range(4)):
+        for pos in range(0, t.shape[1] - SPB + 1, SPB):
+            planes.append(DE.preemph_plane(
+                param, [t[0][pos:pos + SPB], t[1][pos:pos + SPB]], SPB))
+    rows = np.concatenate(planes)[:128]
+    orders = PRESETS[7].layer_num_params
+    fit = ED.build_fit_fn(orders, PRESETS[7].ridge_terms, SPB, 16, 8)
+    params = fit(torch.from_numpy(rows).cuda())["params"]
+    torch.cuda.synchronize()
+    if hasattr(AS, "quantize_layers_exact"):
+        return AS.quantize_layers_exact, [(params, orders, 8)]
+    calls, col = [], 0
+    for order in orders:
+        calls.append((params[:, col:col + order], 8))
+        col += order
+    return ED._quantize_layer, calls
+
+
+def canonical_outputs(torch, name, calls, outs):
+    """The outputs of a kernel's calls in the form both checkouts share:
+    the quantizers' a layer (int coefficients, rshift), then the byte-exact
+    one's two margins folded over the layers; other kernels' as they are."""
+    if name not in ("quantize_coefficients", "quantize_layer"):
+        return [o for out in outs for o in _outputs(out)]
+    layers, margins = [], []
+    for args, out in zip(calls, outs):
+        ic, rs = out[0], out[1]
+        if isinstance(args[0], list):  # quantize_layers: rs [L, rows]
+            orders, rs_of = [c.shape[1] for c in args[0]], lambda li: rs[li]
+        elif len(args) == 3:  # quantize_layers_exact: rs [rows, L]
+            orders, rs_of = list(args[1]), lambda li: rs[:, li]
+        else:  # one layer
+            orders, rs_of = [ic.shape[1]], lambda li: rs
+        col = 0
+        for li, order in enumerate(orders):
+            layers += [ic[:, col:col + order], rs_of(li)]
+            col += order
+        margins.append(out[2:])
+    return layers + [functools.reduce(torch.minimum, m)
+                     for m in zip(*margins)]
 
 
 def chunk_ms(torch, kernel, calls, runs: int = 5):
@@ -216,15 +311,36 @@ def chunk_ms(torch, kernel, calls, runs: int = 5):
     return out
 
 
-def call_ms(torch, kernel, calls, runs: int = 7):
+def burst_ms(torch, kernel, calls, bursts: int = 3, reps: int = 5):
+    """chip_smoke.py phase 4's measure of the chunk: its calls enqueued
+    reps times back to back behind a ~1 ms spin, the CUDA-event time over
+    reps, the least of `bursts` such runs (a host stall longer than the
+    spin lets the enqueue into one of them)."""
+    out = []
+    for _ in range(bursts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(reps):
+            for args in calls:
+                kernel(*args)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return min(out)
+
+
+def call_ms(torch, kernel, calls, runs: int = 7, name: str = ""):
     """Each call of the chunk alone: [argument shapes, median CUDA-event
     ms of runs, each queued behind a ~1 ms spin], and a hash of the
-    outputs."""
+    outputs (canonical_outputs)."""
     digest = hashlib.sha256()
+    outs = [kernel(*args) for args in calls]
+    for o in canonical_outputs(torch, name, calls, outs):
+        digest.update(o.contiguous().cpu().numpy().tobytes())
     out = []
     for args in calls:
-        for o in _outputs(kernel(*args)):
-            digest.update(o.cpu().numpy().tobytes())
         ms = []
         for _ in range(runs):
             start = torch.cuda.Event(enable_timing=True)
@@ -235,10 +351,20 @@ def call_ms(torch, kernel, calls, runs: int = 7):
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end))
-        shape = [list(a.shape) if isinstance(a, torch.Tensor) else a
-                 for a in args]
-        out.append([shape, float(np.median(ms))])
+        out.append([shapes(torch, args), float(np.median(ms))])
     return out, digest.hexdigest()[:16]
+
+
+def shapes(torch, args):
+    """A call's arguments as JSON: tensors (also in a list) by shape."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return list(a.shape)
+        if isinstance(a, (list, tuple)) and a and isinstance(
+                a[0], torch.Tensor):
+            return [list(t.shape) for t in a]
+        return list(a) if isinstance(a, tuple) else a
+    return [one(a) for a in args]
 
 
 def kernel_times(torch, name: str, calls_file=None) -> dict:
@@ -247,16 +373,21 @@ def kernel_times(torch, name: str, calls_file=None) -> dict:
     if name in SCAN_KERNELS:
         from linne_tpu_torch.ops import analysis_scans as AS
 
-        calls = batch_scan_calls(torch, name, calls_file)
-        kernel, short = getattr(AS, name), name
+        kernel, calls = scan_calls(AS, name,
+                                   batch_scan_calls(torch, name, calls_file))
+        short = name
+    elif name == "quantize_layer":
+        kernel, calls = exact_quant_calls(torch)
+        short = name
     else:
         from linne_tpu_torch.ops import exact_serial as ES
 
         calls = chunk_calls(torch, ES, name)
         kernel, short = getattr(ES, name), SHORT[name]
-    times = {f"{short}_chunk_ms": chunk_ms(torch, kernel, calls)}
+    times = {f"{short}_chunk_ms": chunk_ms(torch, kernel, calls),
+             f"{short}_burst_ms": burst_ms(torch, kernel, calls)}
     times[f"{short}_call_ms"], times[f"{short}_digest"] = call_ms(
-        torch, kernel, calls)
+        torch, kernel, calls, name=name)
     return times
 
 
@@ -267,7 +398,8 @@ def split_times(torch, root: pathlib.Path, name: str) -> dict:
     from linne_tpu_torch.ops import _kernels
     from linne_tpu_torch.ops import analysis_scans as AS
 
-    calls = batch_scan_calls(torch, name)
+    kernel, calls = scan_calls(AS, name, batch_scan_calls(torch, name))
+    entry = ENTRY.get(name, name)
     src = root / "linne_tpu_torch" / "csrc" / "analysis_scans.cu"
     out = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -276,17 +408,16 @@ def split_times(torch, root: pathlib.Path, name: str) -> dict:
                         "-DLINNE_CLOCK_SPLIT", "-o", str(lib_path), str(src)],
                        check=True)
         lib = ctypes.CDLL(str(lib_path))
-        fn = getattr(lib, f"linne_{name}")
-        fn.argtypes = AS._SIGNATURES[name]
+        fn = getattr(lib, f"linne_{entry}")
+        fn.argtypes = AS._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         read = lib.linne_clock_split
         read.argtypes = [ctypes.c_void_p]
         read.restype = ctypes.c_int
         slots = (ctypes.c_longlong * 8)()
-        real = AS._fns.get(name)
-        AS._fns[name] = fn
+        real = AS._fns.get(entry)
+        AS._fns[entry] = fn
         try:
-            kernel = getattr(AS, name)
             for args in calls:
                 kernel(*args)  # warm
                 torch.cuda.synchronize()
@@ -295,14 +426,12 @@ def split_times(torch, root: pathlib.Path, name: str) -> dict:
                 torch.cuda.synchronize()
                 if read(slots) != 0:
                     raise SystemExit("chip_pairs: linne_clock_split failed")
-                shape = [list(a.shape) if isinstance(a, torch.Tensor) else a
-                         for a in args]
-                out.append([shape, list(slots)])
+                out.append([shapes(torch, args), list(slots)])
         finally:
             if real is None:
-                AS._fns.pop(name, None)
+                AS._fns.pop(entry, None)
             else:
-                AS._fns[name] = real
+                AS._fns[entry] = real
     return {f"{name}_split": out}
 
 
@@ -393,9 +522,9 @@ def main() -> int:
     if "--autocorr" in argv:  # the older spelling of --kernel autocorr_serial
         argv.remove("--autocorr")
         kernel = "autocorr_serial"
-    if kernel is not None and kernel not in KERNELS + SCAN_KERNELS:
-        raise SystemExit(f"chip_pairs: --kernel takes one of "
-                         f"{KERNELS + SCAN_KERNELS}")
+    kernels = KERNELS + SCAN_KERNELS + ("quantize_layer",)
+    if kernel is not None and kernel not in kernels:
+        raise SystemExit(f"chip_pairs: --kernel takes one of {kernels}")
     if split is not None and split not in SCAN_KERNELS:
         raise SystemExit(f"chip_pairs: --split takes one of {SCAN_KERNELS}")
     exact = "--exact" in argv

@@ -17,10 +17,15 @@ Phases (any failure raises and the script exits non-zero):
      around the 32-lane chunk, rows shorter than a chunk, ragged chunks, a
      row count that is not a multiple of the warps per block), and time
      both at the layer-1 group of a 60 s stereo track, beside the bound;
-  3b. the encode's serial loops (analysis_scans.cu): each kernel against
-     its plain torch version on the card, one launch a case: the quantizer
-     at every order 1..128 (all-zero rows, the 2^-7 threshold, exact .5
-     ties, the +-128 clamp), bit for bit; levinson_durbin at every order
+  3b. the encode's serial loops and the byte-exact quantizer
+     (analysis_scans.cu): each kernel against its plain torch version on
+     the card, one launch a case: both quantizer variants at every order
+     1..128 (all-zero rows, the 2^-7 threshold, exact .5 ties, the +-128
+     clamp; the byte-exact one also NaN and +-Inf rows and a frexp bin
+     edge, its margins included) and in ragged groups of layers (orders
+     (4, 128, 16), (128), (1, 2, 3, 4) at 1, 31, 33, 128 and 517 rows,
+     read at a wider tensor's row stride and from contiguous copies), bit
+     for bit; levinson_durbin at every order
      1..128 on 3 CTAs of rows and 14 more, with silent, guard (ek exactly
      0), rank-deficient, NaN and +-Inf rows (NaN and +-Inf in the same
      places, silent and guard rows bit-equal, determined rows within
@@ -32,8 +37,9 @@ Phases (any failure raises and the script exits non-zero):
   4. main path: TorchEncoder.encode_many on a seeded 4 x 30 s stereo corpus
      at preset 7, then TorchDecoder.decode_many, both on the card; every
      stream must decode losslessly (also under the host Decoder), the
-     encode must have launched each analysis_scans kernel and the decode
-     the synthesis kernel; the W of each batch, the overflow rows and the
+     encode must have launched each of its analysis_scans kernels (the
+     quantizer once a batch, every layer in one launch) and the decode the
+     synthesis kernel; the W of each batch, the overflow rows and the
      bytes each transfer moved; then every analysis_scans call of one
      64-block batch, checked against its plain version and timed beside
      its bound and chain bound; the torch ops that batch dispatches per
@@ -70,8 +76,10 @@ Phases (any failure raises and the script exits non-zero):
      lossless; wall time, realtime multiples, guard counters, launches and
      a torch.profiler split of device time against wall time;
  10. exact-device calls: the corpus's device fit alone (no framing), timed,
-     with the host share of the quantizer's tap loop and its share of the
-     torch ops one chunk dispatches; then every kernel call of one 128-row fit chunk of that corpus,
+     with the host share of the quantizer (one launch a chunk) and its
+     share of the torch ops one chunk dispatches; then every kernel call
+     of one 128-row fit chunk of that corpus (the quantizer's one launch
+     too),
      recorded, checked bit for bit against the plain version and timed
      beside its bound, chain bound (at the measured DADD latency) and
      their larger (the call's floor), with the plan of each
@@ -309,22 +317,36 @@ def main_path_phase(tracks):
     enc = TorchEncoder(device="cuda")
     enc.set_encode_parameter(param())
     dec = TorchDecoder(device="cuda")
+    real_quantize, batches = A.quantize_layers, []
+
+    def quantize_layers(coefs, nbits):  # counts the batches' finish stages
+        batches.append(len(coefs))
+        return real_quantize(coefs, nbits)
+
     S.KERNEL_LAUNCHES = 0
     for k in AS.KERNELS:
         AS.KERNEL_LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    datas = enc.encode_many([[t[0], t[1]] for t in tracks], lengths)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    A.quantize_layers = quantize_layers
+    try:
+        t0 = time.perf_counter()
+        datas = enc.encode_many([[t[0], t[1]] for t in tracks], lengths)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        A.quantize_layers = real_quantize
     decoded = dec.decode_many(datas)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = S.KERNEL_LAUNCHES
-    scan_launches = dict(AS.KERNEL_LAUNCHES)
+    scan_launches = {k: AS.KERNEL_LAUNCHES[k] for k in MAIN_SCANS}
 
     require(launches > 0, "decode_many did not launch the synthesis kernel")
     for k, v in scan_launches.items():
         require(v > 0, f"encode_many did not launch the {k} kernel")
+    require(scan_launches["quantize_coefficients"] == len(batches)
+            and set(batches) == {len(PRESETS[PRESET].layer_num_params)},
+            f"the quantizer launched {scan_launches['quantize_coefficients']}"
+            f" times for {len(batches)} batches: not once a batch")
     for sig, data, out in zip(tracks, datas, decoded):
         require(lossless(sig, out), "TorchDecoder output is not lossless")
         require(lossless(sig, Decoder().decode_whole(data)),
@@ -337,7 +359,8 @@ def main_path_phase(tracks):
           f"({seconds / (t2 - t1):.1f}x realtime), "
           f"size {100.0 * out_bytes / in_bytes:.3f} % of PCM, "
           f"kernel launches {launches}; encode launches of the "
-          f"analysis_scans kernels {scan_launches}")
+          f"analysis_scans kernels {scan_launches} ({len(batches)} batches:"
+          f" the quantizer once a batch)")
     transfer_report(enc, dec, datas)
     return launches, scan_launches, datas, seconds / (t1 - t0)
 
@@ -515,14 +538,25 @@ def cross_device_phase() -> None:
 
 # -- the encode's serial loops as kernels (analysis_scans.cu) -----------------
 
+# The batched encode's kernels (the byte-exact fit's quantizer,
+# "quantize_layer", is the fourth of AS.KERNELS), the wrapper the encode
+# calls for each, and each wrapper's plain version.
+MAIN_SCANS = ("levinson_durbin", "quantize_coefficients", "predict_dense")
+_SCAN_WRAPPER = {"levinson_durbin": "levinson_durbin",
+                 "quantize_coefficients": "quantize_layers",
+                 "predict_dense": "predict_dense",
+                 "quantize_layer": "quantize_layers_exact"}
 _SCAN_PLAIN = {"levinson_durbin": A._levinson_durbin_plain,
-               "quantize_coefficients": A._quantize_coefficients_plain,
-               "predict_dense": I._predict_dense_plain}
+               "quantize_coefficients": A._quantize_layers_plain,
+               "predict_dense": I._predict_dense_plain,
+               "quantize_layer": ED._quantize_layers_plain}
 # Where each kernel's loop stands in the JAX package: an XLA scan inside a
-# jitted stage, not a Pallas kernel.
+# jitted stage (the byte-exact quantizer: an unrolled loop of the jitted
+# fit), not a Pallas kernel.
 _SCAN_REPLACES = {"levinson_durbin": "linne_tpu/ops/analysis.py:141",
                   "quantize_coefficients": "linne_tpu/ops/analysis.py:426",
-                  "predict_dense": "linne_tpu/ops/intops.py:87"}
+                  "predict_dense": "linne_tpu/ops/intops.py:87",
+                  "quantize_layer": "linne_tpu/ops/exact_device.py:429"}
 # The recursion's tolerance against its plain version. Both round every
 # operation alike but sum a . s in other orders, so they differ by the
 # rounding of those sums, which the recursion carries on. On rows that the
@@ -576,22 +610,19 @@ def check_levinson(args, got, what, exact_rows=()):
 def check_scan(name, args, got, what, exact_rows=()):
     """One kernel call's outputs against the plain version. Returns (largest
     relative, largest absolute difference, determined rows, rows); the
-    quantizer and the predict cascade must be bit-equal."""
+    quantizer's two variants and the predict cascade must be bit-equal
+    (float64 as int64 bits: both ran on the card, NaN bits included)."""
     if name == "levinson_durbin":
         return check_levinson(args, got, what, exact_rows)
-    want = _SCAN_PLAIN[name](*args)
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    for g, w in zip(got, want):
-        require(torch.equal(g, w), f"{name} != plain version at {what}")
+    check_exact(name, got, _SCAN_PLAIN[name](*args), what)
     return 0.0, 0.0, 0, 0
 
 
 def scan_launch(name, args):
-    """One call of the kernel through its wrapper, which must launch it
-    once."""
+    """One call of kernel `name` through the wrapper the encode calls,
+    which must launch it once."""
     before = AS.KERNEL_LAUNCHES[name]
-    got = getattr(AS, name)(*args)
+    got = getattr(AS, _SCAN_WRAPPER[name])(*args)
     torch.cuda.synchronize()
     require(AS.KERNEL_LAUNCHES[name] == before + 1,
             f"{name}: not one launch")
@@ -612,6 +643,47 @@ def quantize_edge_rows(order, seed) -> torch.Tensor:
     c[6, 0] = 0.75
     c[7] = np.where(np.arange(order) % 3, 127.49, -127.87) * 2.0 ** -7
     return torch.from_numpy(c).cuda()
+
+
+def quantize_special_rows(order, seed) -> torch.Tensor:
+    """[14, order] on the card: quantize_edge_rows, then rows for the
+    byte-exact variant: NaN coefficients (their products count as 0), +Inf
+    and -Inf in a row of one sign, +Inf and -Inf together (NaN sums), max
+    |c| exactly 2^-1 (a frexp bin edge) and a row of 2^-1074."""
+    c = torch.cat([quantize_edge_rows(order, seed),
+                   quantize_edge_rows(order, seed + 1)[:6]])
+    c[8, ::3] = float("nan")
+    c[9, 0] = float("inf")
+    c[10, -1] = -float("inf")
+    c[11, 0], c[11, -1] = float("inf"), -float("inf")
+    c[12] = c[12].clamp(-0.49, 0.49)
+    c[12, order // 2] = 0.5
+    c[13] = 2.0 ** -1074
+    return c
+
+
+def quantize_group(orders, rows, seed, exact=False, width=0):
+    """One group of layers on the card, `rows` rows each, their first rows
+    quantize_special_rows (quantize_edge_rows without the exact variant's
+    non-finite rows): the layers [rows, order] as column slices of one
+    [rows, sum(orders) + width] tensor (rows at its stride), and that
+    tensor."""
+    parts = []
+    for li, order in enumerate(orders):
+        rng = np.random.default_rng(seed + li)
+        c = torch.from_numpy(rng.normal(0, 0.3, (rows, order))).cuda()
+        edge = (quantize_special_rows(order, seed + li) if exact
+                else quantize_edge_rows(order, seed + li))
+        k = min(rows, edge.shape[0])
+        c[:k] = edge[:k]
+        parts.append(c)
+    arena = torch.cat(parts + [parts[0].new_full((rows, width),
+                                                 float("nan"))], dim=1)
+    layers, col = [], 0
+    for order in orders:
+        layers.append(arena[:, col:col + order])
+        col += order
+    return layers, arena
 
 
 def levinson_edge_rows(order, seed, extra=0) -> torch.Tensor:
@@ -661,10 +733,19 @@ PREDICT_EDGES = [(4, (1, 2, 4), 1500), (4, (1, 2, 4), 12),
                  (32, (1, 2, 4, 8, 16, 32), 1056)]
 
 
+# (orders, rows) of the quantizer's ragged groups: preset 7's layers, one
+# layer, four short ones; one row, rows around a CTA's tile, 517
+QUANT_GROUPS = [(orders, rows) for orders in ((4, 128, 16), (128,),
+                                              (1, 2, 3, 4))
+                for rows in (1, 31, 33, 128, 517)]
+
+
 def scans_edge_phase() -> dict:
     """Each analysis_scans kernel against its plain version on the card at
-    the edges of its design, one launch a case: the quantizer at every order
-    1..128; the recursion at every order 1..128 (each lanes-a-row template
+    the edges of its design, one launch a case: the quantizer's two
+    variants at every order 1..128 (one layer; the byte-exact one also on
+    NaN and +-Inf rows) and in QUANT_GROUPS, their layers as column slices
+    of a wider tensor and as contiguous copies; the recursion at every order 1..128 (each lanes-a-row template
     and its edges) on 3 CTAs of rows and 14 more (no multiple of a CTA's
     rows), with silent, guard, rank-deficient and non-finite rows, twice
     (the same bits) and with its rows reversed (the same bits a row); the
@@ -675,10 +756,28 @@ def scans_edge_phase() -> dict:
     err = dict.fromkeys(AS.KERNELS, 0.0)
     counts = dict.fromkeys(AS.KERNELS, 0)
     for order in range(1, 129):
-        args = (quantize_edge_rows(order, order), LPC_COEF_BITWIDTH)
-        check_scan("quantize_coefficients", args,
-                   scan_launch("quantize_coefficients", args), order)
-        counts["quantize_coefficients"] += 1
+        for name, rows in (("quantize_coefficients",
+                            quantize_edge_rows(order, order)),
+                           ("quantize_layer",
+                            quantize_special_rows(order, order))):
+            args = (([rows], LPC_COEF_BITWIDTH) if name ==
+                    "quantize_coefficients"
+                    else (rows, (order,), LPC_COEF_BITWIDTH))
+            check_scan(name, args, scan_launch(name, args), order)
+            counts[name] += 1
+    for orders, rows in QUANT_GROUPS:
+        seed = rows + sum(orders)
+        layers, _ = quantize_group(orders, rows, seed, width=3)
+        _, arena = quantize_group(orders, rows, seed, exact=True, width=5)
+        for args, name in (
+                ((layers, LPC_COEF_BITWIDTH), "quantize_coefficients"),
+                (([c.contiguous() for c in layers], LPC_COEF_BITWIDTH),
+                 "quantize_coefficients"),
+                ((arena, orders, LPC_COEF_BITWIDTH), "quantize_layer"),
+                ((arena[:, :sum(orders)].contiguous(), orders,
+                  LPC_COEF_BITWIDTH), "quantize_layer")):
+            check_scan(name, args, scan_launch(name, args), (orders, rows))
+            counts[name] += 1
     rel = 0.0
     for order in range(1, 129):
         cta_rows = 128 // AS.levinson_lanes(order)
@@ -722,8 +821,9 @@ def scans_edge_phase() -> dict:
         counts["predict_dense"] += 1
     print(f"analysis_scans kernels against their plain versions at "
           f"{sum(counts.values())} edge cases, one launch each "
-          f"({', '.join(f'{k} {v}' for k, v in counts.items())}): quantizer "
-          f"and predict cascade bit-equal; levinson NaN and +-Inf in the "
+          f"({', '.join(f'{k} {v}' for k, v in counts.items())}): both "
+          f"quantizer variants (margins included) and the predict cascade "
+          f"bit-equal; levinson NaN and +-Inf in the "
           f"same places, silent and guard rows bit-equal, the same bits run "
           f"to run and in reversed rows, determined rows within "
           f"{rel:.3g} of the row's largest |value| (tolerance "
@@ -731,7 +831,7 @@ def scans_edge_phase() -> dict:
     return err
 
 
-def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles):
+def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles=0.0):
     """(bound ms, "operations" | "bytes", chain ms) of one analysis_scans
     call: its operations over the issue rate (FP64 for the recursion and
     the quantizer, IMAD for the predict cascade, the multiply-adds that
@@ -752,12 +852,22 @@ def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles):
         # divide waits for ek); the sums may run beside them
         chain = order * (ddiv_cycles + 3 * dadd_cycles)
         t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
-    elif name == "quantize_coefficients":
-        coefs = args[0]
-        rows, order = coefs.shape
-        ops = rows * order * (QUANT_CHAIN_STEPS + 2)  # and |c|, max, product
-        nbytes = rows * order * (8 + 4) + 4 * rows
-        chain = order * QUANT_CHAIN_STEPS * dadd_cycles
+    elif name in ("quantize_coefficients", "quantize_layer"):
+        # one launch over every layer: the chain bound is the longest
+        # layer's; the byte-exact variant adds the round margin's rint,
+        # subtract and minimum a tap and writes two margins a row
+        if name == "quantize_coefficients":
+            orders = [c.shape[1] for c in args[0]]
+            rows = args[0][0].shape[0]
+        else:
+            orders, rows = list(args[1]), args[0].shape[0]
+        exact = name == "quantize_layer"
+        taps = rows * sum(orders)
+        # the chain, and |c|, max and the product
+        ops = taps * (QUANT_CHAIN_STEPS + 2 + (3 if exact else 0))
+        nbytes = taps * (8 + 4) + 4 * rows * len(orders) + (
+            16 * rows if exact else 0)
+        chain = max(orders) * QUANT_CHAIN_STEPS * dadd_cycles
         t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
     else:
         x, coefs, log2u = args[0], args[1], args[2]
@@ -798,76 +908,103 @@ def scan_calls_phase(tracks, clock_hz, dadd_cycles, ddiv_cycles) -> dict:
     enc.set_encode_parameter(param())
     analyze = enc._analyze_fn(SPB)[0]
     analyze(blocks)  # warm: cuBLAS handles, the kernels' library
-    calls = {k: [] for k in AS.KERNELS}
-    real = {k: getattr(AS, k) for k in AS.KERNELS}
+    calls = {k: [] for k in MAIN_SCANS}
+    real = {k: getattr(AS, _SCAN_WRAPPER[k]) for k in MAIN_SCANS}
 
     def recorder(name):
         def rec(*args):
-            calls[name].append(tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a
-                for a in args))
+            calls[name].append(clone_args(args))
             return real[name](*args)
         return rec
 
-    for k in AS.KERNELS:
-        setattr(AS, k, recorder(k))
+    for k in MAIN_SCANS:
+        setattr(AS, _SCAN_WRAPPER[k], recorder(k))
     try:
         analyze(blocks)
     finally:
-        for k in AS.KERNELS:
-            setattr(AS, k, real[k])
+        for k in MAIN_SCANS:
+            setattr(AS, _SCAN_WRAPPER[k], real[k])
     torch.cuda.synchronize()
+    require(len(calls["quantize_coefficients"]) == 1,
+            "the batch did not quantize its layers in one call")
+    return {name: time_scan_calls(name, calls[name], clock_hz, dadd_cycles,
+                                  ddiv_cycles, "64-block batch")
+            for name in MAIN_SCANS}
 
-    out = {}
-    for name in AS.KERNELS:
-        r = {"max_abs_err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0,
-             "bound_ms": 0.0, "chain_ms": 0.0, "calls": len(calls[name]),
-             "det": 0, "rows": 0}
-        by = {"operations": 0.0, "bytes": 0.0}
-        for args in calls[name]:
-            kernel = getattr(AS, name)
-            # the least of three timings: a host stall longer than the
-            # spin lets the enqueue into one of them
-            call_ms = min(kernel_ms(lambda: kernel(*args), reps=5)
-                          for _ in range(3))
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            _SCAN_PLAIN[name](*args)
-            end.record()
-            torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
-            shape = tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
-                          else a for a in args)
-            rel, err, det, rows = check_scan(name, args, kernel(*args),
-                                             shape)
-            b_ms, b_by, c_ms = scan_bound(name, args, clock_hz, dadd_cycles,
-                                          ddiv_cycles)
-            for key, v in (("ms", call_ms), ("plain_ms", plain_ms),
-                           ("bound_ms", b_ms), ("chain_ms", c_ms),
-                           ("det", det), ("rows", rows)):
-                r[key] += v
-            r["rel"] = max(r["rel"], rel)
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            by[b_by] += b_ms
-            print(f"  {name} {shape}: {call_ms:.4f} ms, plain torch "
-                  f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})"
-                  + (f", chain bound {c_ms:.4f} ms" if c_ms else ""))
-        r["bound_by"] = max(by, key=by.get)
-        out[name] = r
-        det = (f"; levinson off by at most {r['rel']:.3g} of the row's "
-               f"largest |value| on {r['det']} of {r['rows']} rows (the "
-               f"determined ones), {r['max_abs_err']:.3g} absolute"
-               if name == "levinson_durbin" else ", bit-equal")
-        chain = (f", chain bound {r['chain_ms']:.4f} ms "
-                 f"({100 * r['chain_ms'] / r['ms']:.1f} % of it reached)"
-                 if r["chain_ms"] else "")
-        print(f"analysis_scans calls {name}: {r['calls']} calls in one "
-              f"64-block batch{det}; kernel {r['ms']:.4f} ms, plain torch "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.2f} % of "
-              f"it reached){chain}")
-    return out
+
+def clone_args(args):
+    """A call's arguments with every tensor (also in a list) cloned."""
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if isinstance(a, (list, tuple)) and a and isinstance(
+                a[0], torch.Tensor):
+            return [t.clone() for t in a]
+        return a
+    return tuple(one(a) for a in args)
+
+
+def arg_shape(a):
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape)
+    if isinstance(a, list) and a and isinstance(a[0], torch.Tensor):
+        return [tuple(t.shape) for t in a]
+    return a
+
+
+def time_scan_calls(name, calls, clock_hz, dadd_cycles, ddiv_cycles,
+                    where) -> dict:
+    """Check each recorded call of kernel `name` against its plain version
+    on the card and time both, beside its bound and chain bound; prints a
+    line a call and one for the calls. Returns {max_abs_err, rel, ms,
+    plain_ms, bound_ms, bound_by, chain_ms, calls, det, rows}, summed over
+    the calls."""
+    r = {"max_abs_err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0,
+         "bound_ms": 0.0, "chain_ms": 0.0, "calls": len(calls),
+         "det": 0, "rows": 0}
+    by = {"operations": 0.0, "bytes": 0.0}
+    for args in calls:
+        kernel = getattr(AS, _SCAN_WRAPPER[name])
+        # the least of three timings: a host stall longer than the
+        # spin lets the enqueue into one of them
+        call_ms = min(kernel_ms(lambda: kernel(*args), reps=5)
+                      for _ in range(3))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _SCAN_PLAIN[name](*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        shape = tuple(arg_shape(a) for a in args)
+        rel, err, det, rows = check_scan(name, args, kernel(*args),
+                                         shape)
+        b_ms, b_by, c_ms = scan_bound(name, args, clock_hz, dadd_cycles,
+                                      ddiv_cycles)
+        for key, v in (("ms", call_ms), ("plain_ms", plain_ms),
+                       ("bound_ms", b_ms), ("chain_ms", c_ms),
+                       ("det", det), ("rows", rows)):
+            r[key] += v
+        r["rel"] = max(r["rel"], rel)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        by[b_by] += b_ms
+        print(f"  {name} {shape}: {call_ms:.4f} ms, plain torch "
+              f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})"
+              + (f", chain bound {c_ms:.4f} ms" if c_ms else ""))
+    r["bound_by"] = max(by, key=by.get)
+    det = (f"; levinson off by at most {r['rel']:.3g} of the row's "
+           f"largest |value| on {r['det']} of {r['rows']} rows (the "
+           f"determined ones), {r['max_abs_err']:.3g} absolute"
+           if name == "levinson_durbin" else ", bit-equal")
+    chain = (f", chain bound {r['chain_ms']:.4f} ms "
+             f"({100 * r['chain_ms'] / r['ms']:.1f} % of it reached)"
+             if r["chain_ms"] else "")
+    print(f"analysis_scans calls {name}: {r['calls']} calls in one "
+          f"{where}{det}; kernel {r['ms']:.4f} ms, plain torch "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.2f} % of "
+          f"it reached){chain}")
+    return r
 
 
 class PlainScans:
@@ -877,19 +1014,17 @@ class PlainScans:
 
     def __init__(self, on: bool = True):
         self.on = on
-        self._real = (A.levinson_durbin, A.quantize_coefficients,
-                      I._predict_dense)
+        self._real = (A.levinson_durbin, A.quantize_layers, I._predict_dense)
 
     def __enter__(self):
         if self.on:
             A.levinson_durbin = A._levinson_durbin_plain
-            A.quantize_coefficients = A._quantize_coefficients_plain
+            A.quantize_layers = A._quantize_layers_plain
             I._predict_dense = I._predict_dense_plain
         return self
 
     def __exit__(self, *exc):
-        A.levinson_durbin, A.quantize_coefficients, I._predict_dense = (
-            self._real)
+        A.levinson_durbin, A.quantize_layers, I._predict_dense = self._real
 
 
 def stage_ops(blocks) -> dict:
@@ -1289,12 +1424,14 @@ def exact_encode_phase(tracks):
     enc.set_encode_parameter(param())
     for k in ES.KERNELS:
         ES.KERNEL_LAUNCHES[k] = 0
+    AS.KERNEL_LAUNCHES["quantize_layer"] = 0
     t0 = time.perf_counter()
     datas = enc.encode_many(chans, lengths)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ES.KERNEL_LAUNCHES)
-    for k in ES.KERNELS:
+    launches["quantize_layer"] = AS.KERNEL_LAUNCHES["quantize_layer"]
+    for k in launches:
         require(launches[k] > 0, f"the exact-device encode did not launch "
                                  f"{k}")
     print(f"exact-device: {len(tracks)} tracks, {seconds:.1f} s stereo, "
@@ -1345,7 +1482,8 @@ def exact_profile_phase(chans, lengths, unprofiled_wall) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # levinson_ matches levinson_thread_kernel<P> and levinson_warp_kernel
     names = {"autocorr_kernel": 0.0, "levinson_": 0.0,
-             "abs_mean_kernel": 0.0, "chain_predict_kernel": 0.0}
+             "abs_mean_kernel": 0.0, "chain_predict_kernel": 0.0,
+             "quantize_kernel": 0.0}
     copy_us = other_us = 0.0
     n_other = 0
     for ev in prof.key_averages():
@@ -1429,14 +1567,15 @@ def fast_version(name: str, args):
 
 
 class QuantizerTap:
-    """Within its `with`, `exact_device._quantize_layer` (the error-feedback
-    quantizer, a plain torch loop over taps) sums its host time into
-    `seconds` and marks `inside` while it runs."""
+    """Within its `with`, `exact_device._quantize_layers` (the fit's
+    error-feedback quantizer over every layer: one kernel launch on the
+    card) sums its host time into `seconds` and marks `inside` while it
+    runs."""
 
     def __init__(self):
         self.seconds = 0.0
         self.inside = False
-        self._real = ED._quantize_layer
+        self._real = ED._quantize_layers
 
     def _timed(self, *args):
         t0 = time.perf_counter()
@@ -1448,11 +1587,11 @@ class QuantizerTap:
             self.seconds += time.perf_counter() - t0
 
     def __enter__(self):
-        ED._quantize_layer = self._timed
+        ED._quantize_layers = self._timed
         return self
 
     def __exit__(self, *exc):
-        ED._quantize_layer = self._real
+        ED._quantize_layers = self._real
 
 
 def count_ops(fn, *args, inside=lambda: False):
@@ -1530,10 +1669,12 @@ def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
     ops, quant_ops = count_fit_ops(fit, torch.from_numpy(rows).cuda())
     print(f"exact-device fit dispatch: one {rows.shape[0]}-row chunk "
           f"dispatches {ops} torch ops (views and allocations excluded; the "
-          f"exact_serial kernels are not torch ops), {quant_ops} of them in "
+          f"kernels are not torch ops), {quant_ops} of them in "
           f"the quantizer ({100 * quant_ops / ops:.1f} %)")
     calls = {k: [] for k in ES.KERNELS}
     real = {k: getattr(ES, k) for k in ES.KERNELS}
+    quant_calls = []
+    real_quant = AS.quantize_layers_exact
 
     def recorder(name):
         def rec(*args):
@@ -1543,14 +1684,22 @@ def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
             return real[name](*args)
         return rec
 
+    def quant_rec(*args):
+        quant_calls.append(clone_args(args))
+        return real_quant(*args)
+
     for k in ES.KERNELS:
         setattr(ES, k, recorder(k))
+    AS.quantize_layers_exact = quant_rec
     try:
         fit(torch.from_numpy(rows).cuda())
     finally:
         for k in ES.KERNELS:
             setattr(ES, k, real[k])
+        AS.quantize_layers_exact = real_quant
     torch.cuda.synchronize()
+    require(len(quant_calls) == 1,
+            "the fit chunk did not quantize its layers in one call")
 
     out = {}
     call_lines = {"autocorr_serial": autocorr_call_line,
@@ -1598,6 +1747,9 @@ def exact_calls_phase(tracks, clock_hz: float, dadd_cycles: float) -> dict:
               f"({r['chain8_ms']:.4f} ms at {DADD_CYCLES}); the calls' "
               f"floors (the larger of the two a call) {r['floor_ms']:.4f} ms, "
               f"{100 * r['floor_ms'] / r['ms']:.1f} % of it reached")
+    out["quantize_layer"] = time_scan_calls(
+        "quantize_layer", quant_calls, clock_hz, dadd_cycles, 0.0,
+        f"{rows.shape[0]}-row fit chunk")
     return out
 
 
@@ -2194,7 +2346,7 @@ def ptxas_report(name: str) -> str:
     for line in proc.stderr.splitlines():
         if "Compiling entry function" in line:
             # _ZN..._<len>autocorr_kernelILi4EEEv... -> autocorr_kernel<4>
-            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?",
+            m = re.search(r"\d+([a-z_]+_kernel)(?:IL[ib](\d+)E)?",
                           line.split("'")[1])
             kernel = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
                       if m else line.split("'")[1])
@@ -2233,8 +2385,8 @@ def main() -> int:
     S._kernel_fn()
     for k in ES.KERNELS:
         ES._fn(k)
-    for k in AS.KERNELS:
-        AS._fn(k)
+    for entry in AS._SIGNATURES:  # the C entry of every kernel
+        AS._fn(entry)
     print(f"built {', '.join(sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
     dadd = ES.dadd_cycles()
@@ -2301,19 +2453,23 @@ def main() -> int:
             "library_ms": None,
         })
     for k in AS.KERNELS:
+        # the byte-exact quantizer: its launches in the exact-device
+        # encode, its time over one 128-row preset-7 fit chunk
+        timed_k = exact[k] if k == "quantize_layer" else scans[k]
         report.append({
             "name": k,
             "route": "cuda",
             "source": "linne_tpu_torch/csrc/analysis_scans.cu",
             # an XLA scan of the JAX graph, not a Pallas kernel
             "replaces": _SCAN_REPLACES[k],
-            "launches": scan_launches[k],
-            "max_abs_err": max(scan_err[k], scans[k]["max_abs_err"]),
+            "launches": (exact_launches[k] if k == "quantize_layer"
+                         else scan_launches[k]),
+            "max_abs_err": max(scan_err[k], timed_k["max_abs_err"]),
             # summed over every call of one 64-block preset-7 batch
-            "ms": scans[k]["ms"],
-            "plain_ms": scans[k]["plain_ms"],
-            "bound_ms": scans[k]["bound_ms"],
-            "bound_by": scans[k]["bound_by"],
+            "ms": timed_k["ms"],
+            "plain_ms": timed_k["plain_ms"],
+            "bound_ms": timed_k["bound_ms"],
+            "bound_by": timed_k["bound_by"],
             # no PyTorch call runs these recursions, or an int32 FIR that
             # wraps, on CUDA
             "library_ms": None,

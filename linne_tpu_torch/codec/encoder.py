@@ -229,17 +229,16 @@ class TorchEncoder:
 
         def finish_stage(raw_flag, silent_flag, pprev, pcoef, buf, log2u,
                          params, W):
-            int_coefs = []
-            rshifts = []
-            for li in range(len(orders)):
-                ic, rs = A.quantize_coefficients(params[li],
-                                                 LPC_COEF_BITWIDTH)
-                int_coefs.append(ic)
-                rshifts.append(rs)
+            # every layer in one launch: int_coef [B, C, sum of orders],
+            # the layers side by side; rshifts [L, B, C]
+            int_coef, rshifts = A.quantize_layers(params, LPC_COEF_BITWIDTH)
             x = buf[..., :n]
-            for li in range(len(orders)):
-                x = I.predict_cascade_layer(x, int_coefs[li], log2u[li],
-                                            rshifts[li], unit_choices[li])
+            col = 0
+            for li, order in enumerate(orders):
+                x = I.predict_cascade_layer(
+                    x, int_coef[..., col:col + order], log2u[li],
+                    rshifts[li], unit_choices[li])
+                col += order
             porder, k2s = R.rice_search(x, dtype)
             # minimal two's-complement width of the block's residuals: x
             # fits w iff -2^(w-1) <= x < 2^(w-1); the exponent of frexp is
@@ -261,8 +260,7 @@ class TorchEncoder:
             parts.append(porder.unsqueeze(-1))
             # the coefficient and k2 planes hold bytes: the 8-bit plane
             # packing puts four to a word, little-endian
-            parts.append(pack_plane_words(torch.cat(
-                [c.to(torch.int32) for c in int_coefs], dim=-1), 8))
+            parts.append(pack_plane_words(int_coef, 8))
             parts.append(pack_plane_words(k2s.to(torch.int32), 8))
             parts.append(pack_plane_words(x, W))
             packed = torch.cat([t.to(torch.int32) for t in parts], dim=-1)

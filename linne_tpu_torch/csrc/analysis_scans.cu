@@ -1,15 +1,18 @@
-// The serial recursions of the batched encoder's analysis and finish stages.
+// The serial recursions of the batched encoder's analysis and finish
+// stages, and the byte-exact fit's quantizer.
 //
-// These kernels replace no Pallas kernel: the JAX package left the three
-// loops of its default encode to XLA as `lax.scan` loops inside jitted
-// stages. Run as eager torch, every step of such a scan is a dozen kernel
-// launches; here each scan is one kernel launch a call:
+// These kernels replace no Pallas kernel: the JAX package left these loops
+// to XLA as `lax.scan` loops (or, on the byte-exact fit, unrolled Python
+// loops) inside jitted stages. Run as eager torch, every step of such a
+// loop is a dozen kernel launches; here each is one kernel launch a call:
 //
-//   quantize_kernel     replaces quantize_coefficients'
-//                       error-feedback scan (linne_tpu/ops/analysis.py:426,
-//                       scan at :448): one thread a row runs the whole
-//                       function, max |c| -> frexp -> rshift -> the tap loop
-//                       from order - 1 down to 0.
+//   quantize_kernel<E>  replaces the error-feedback quantizer: E = false
+//                       quantize_coefficients' scan (linne_tpu/ops/
+//                       analysis.py:426, scan at :448), every layer of a
+//                       batch in one launch; E = true the byte-exact fit's
+//                       _quantize_layer (linne_tpu/ops/exact_device.py:429)
+//                       with the guard's margins, every layer of a fit
+//                       chunk in one launch (below).
 //   levinson_kernel<G>  replaces levinson_durbin's scan over the order
 //                       (linne_tpu/ops/analysis.py:141, scan at :185): G
 //                       lanes a row (1 up to order 4, 32 from order 80),
@@ -21,13 +24,14 @@
 //
 // Exactness. The quantizer and the predict cascade are bit-equal to their
 // plain torch versions (linne_tpu_torch/ops/analysis.py
-// _quantize_coefficients_plain, ops/intops.py _predict_dense_plain): every
-// float product and sum is __dmul_rn / __dadd_rn (nvcc contracts
-// `a + x * y` into an FMA, the intrinsics are never contracted), the
-// rounding is floor(q + 0.5) as there, scale is exp2 of the shift from the
-// same CUDA math function torch calls, and the FIR sums in uint32, where
-// the wrap of int32 arithmetic is associative, so any order of the taps
-// gives the same bits. The recursion keeps the plain version's silent-row
+// _quantize_coefficients_plain, ops/exact_device.py _quantize_layer_plain,
+// ops/intops.py _predict_dense_plain): every float product and sum is
+// __dmul_rn / __dadd_rn (nvcc contracts `a + x * y` into an FMA, the
+// intrinsics are never contracted), the rounding is floor(q + 0.5) as
+// there, scale is the exact power of two of the shift (as torch.exp2 and
+// the table give it), and the FIR sums in uint32, where the wrap of int32
+// arithmetic is associative, so any order of the taps gives the same
+// bits. The recursion keeps the plain version's silent-row
 // substitution (|ac0| < FLT_EPSILON -> 1), its guard (gamma = |ek| > 0 ?
 // num / -ek : 0, one correctly rounded divide), its ek update and its sign
 // convention, but takes the numerator by the Schur recursion instead of a
@@ -42,7 +46,9 @@
 // measure (ddiv_probe_kernel here, dadd_probe_kernel in exact_serial.cu),
 // 136 cycles a step, 0.0088 ms at order 128 at 1.98 GHz; bytes and the
 // FP64 issue rate bound it far below that. The quantizer is a chain of
-// five dependent float64 operations a tap. The predict cascade fills the
+// five dependent float64 operations a tap, so a launch's chain bound is
+// its longest layer's: 128 x 5 DADD latencies, 0.0027 ms at 8.19 cycles
+// and 1.98 GHz; its bytes are ~0.2 MB. The predict cascade fills the
 // card: 128 rows x 10240 samples x up to 128 taps of int32 multiply-adds
 // at 64 IMAD/clk/SM x 132 SMs x 1.98 GHz, against the bytes of the
 // order-4 and order-16 calls.
@@ -55,7 +61,11 @@
 // 0.0228 ms against 0.0558 ms (~310 cycles a step by clock64, against the
 // chain bound's 136: a step issues ~110 instructions, 40 of them FP64);
 // the cascade's 3 calls 0.0360 ms against 0.0683 ms for one sample a
-// thread, the order-128 call alone 0.0199 ms against 0.0447 ms.
+// thread, the order-128 call alone 0.0199 ms against 0.0447 ms; the
+// quantizer's one launch a batch 0.0081 ms against 0.0317 ms for the three
+// per-layer calls of one thread a row (five batches back to back; the
+// chain 61 cycles a tap by clock64), the byte-exact variant 0.0097 ms for
+// a 128-row fit chunk's layers.
 
 #include <cstdint>
 
@@ -130,44 +140,367 @@ __device__ __forceinline__ long long split_bits(uint32_t v) { return v; }
   } while (0)
 #endif
 
-// -- quantize_coefficients ---------------------------------------------------
+// -- the error-feedback quantizer ---------------------------------------------
+//
+// One launch quantizes up to kQMaxLayers layers of the same rows (a batch's
+// layers on the main path, a fit chunk's on the byte-exact path). A layer
+// is a descriptor: its rows' taps at src + row * stride + t, its order, and
+// the first column of its int coefficients in qc. A CTA takes a tile of
+// T = kQMaxItems / count rows and every layer of them, so that its (layer,
+// row) chains fill one warp; the host sorts the descriptors longest order
+// first, so lane 0 runs the longest chain. Phases:
+//   1. stage and reduce: the tile's taps into shared memory with cp.async,
+//      a warp a row, the lanes on consecutive taps (coalesced, no
+//      registers held), a row's layers side by side at an odd stride of
+//      doubles, so that the chain's lanes (a row each) read in distinct
+//      banks; then eight lanes an item, all the CTA's items at once: max
+//      |c| as a tree in registers and three shuffles (max is exact in any
+//      order), frexp -> rshift -> scale, and the products p[t] = c[t] *
+//      scale written over the taps;
+//   2. chain: lane i of warp 0 runs item i from tap order - 1 down to 0,
+//      the products eight taps ahead in registers. The plain version's tap
+//      is s = qerr + p[t]; v = s >= 0 ? floor(s + 0.5) : -floor(0.5 - s),
+//      clamped to [-qmax, qmax - 1]; qerr = s - v. On the chain here: s,
+//      y = |s| + 0.5 (the same bits as s + 0.5 or 0.5 - s), f = floor(y)
+//      by a round-down add of 2^52 (exact, and shorter than FRND),
+//      qerr = s - f or s + f, or s - v_clamp where the clamp binds (y >=
+//      qmax for s >= 0, y >= qmax + 1 for s < 0, beside the floor): five
+//      dependent adds and a select a tap, every value (zeros' signs too)
+//      the plain version's. s goes over p[t] in shared memory; nothing
+//      else is done a tap;
+//   3. store: eight lanes an item again: v from s as the plain version
+//      rounds, clamps and casts it, out coalesced (0 on low rows); on the
+//      exact variant the round margin a tap, its minimum over the item,
+//      and both margins folded over the row's layers.
+//
+// kExact = false is ops/analysis.py:_quantize_coefficients_plain (the
+// batched encoder's quantizer): max |c| by amax (a NaN wins), rshift from
+// frexp clamped to [1, 15], no NaN shield. kExact = true is
+// ops/exact_device.py:_quantize_layer_plain (lpc.c:981-1040 as the
+// byte-exact fit runs it): max |c| skips NaN (the reference's `<` update
+// from 0.0); rshift = (nbits - 1) - exponent, unclamped, in int32 that
+// wraps as torch's does; scale the exact power of two (the plain version's
+// table, its index clamped to [-1074, 1023]); a NaN product counts as 0;
+// and the guard's two sensors: round_margin, the least |y - rint(y)| over
+// the taps (inf on the low path), taken from the stored sums, and
+// scale_margin, from max |c| and its frexp bin edges; each is folded over
+// the row's layers in the launch. A NaN in either propagates, as
+// torch.minimum and amin propagate it. Plain and kernel are bit-equal on
+// the same card; a NaN coefficient's int cast is the card's (the CPU's
+// cast of NaN differs, as it does for the plain version itself).
 
-constexpr int kQThreads = 64;
+constexpr int kQThreads = 256;
+constexpr int kQWarps = kQThreads / 32;
+constexpr int kQMaxLayers = 4;
+constexpr int kQMaxItems = 32;                       // (layer, row) a CTA
+constexpr int kQTaps = kMaxOrder / 32;               // taps a lane, staging
+constexpr int kQLaneTaps = kMaxOrder / 8;            // taps a lane, reducing
+static_assert(kQWarps * 4 == kQMaxItems, "eight lanes an item");
+// a tile's taps: T rows x (sum of orders | 1) doubles with T = 32 / count:
+// at most 32 x 129, 16 x 257, 10 x 385 or 8 x 513
+constexpr int kQSmem = kQMaxItems * (kMaxOrder + 1);
 
-// coefs [rows, order] -> qc [rows, order], rshift [rows]. NaN rows are
-// outside the function's domain (the plain version's int cast of NaN is
-// not defined either).
+struct QLayer {
+  const double* src;
+  int64_t stride;  // between rows, in doubles
+  int order;
+  int col;         // first column of the layer's int coefficients in qc
+  int index;       // the layer's place in the caller's list
+  int scol;        // first column of the layer in a shared-memory row
+};
+
+struct QGroup {
+  QLayer layer[kQMaxLayers];  // longest order first
+  int count;
+  int tile_rows;              // T
+  int stride;                 // the shared-memory row stride (odd)
+};
+
+// Exact 2^e for e clamped to [-1074, 1023], from its bits (the plain
+// versions' table; torch.exp2 at the integers 1..15).
+__device__ __forceinline__ double pow2_exact(long long e) {
+  e = e < -1074 ? -1074 : (e > 1023 ? 1023 : e);
+  return e >= -1022 ? __longlong_as_double((e + 1023) << 52)
+                    : __longlong_as_double(1LL << (e + 1074));
+}
+
+// torch.minimum: a NaN operand wins, the first one first.
+__device__ __forceinline__ double nan_min(double a, double b) {
+  return a != a ? a : (b != b ? b : fmin(a, b));
+}
+
+// The layer of item k = l * T + r, without a division (l < kQMaxLayers).
+__device__ __forceinline__ int q_layer(int k, int T) {
+  return (k >= T) + (k >= 2 * T) + (k >= 3 * T);
+}
+
+// dst: a shared-memory address (cvta.to.shared of a pointer into sm)
+__device__ __forceinline__ void cp_async8(unsigned dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// The error fed back from the sum s of a tap (see 2. above): s - v, with v
+// s rounded half away from zero and clamped to [-qmax, qmax - 1].
+__device__ __forceinline__ double quantize_feedback(double s, double qmax) {
+  constexpr double kTwo52 = 4503599627370496.0;
+  const bool pos = s >= 0.0;
+  const double y = __dadd_rn(fabs(s), 0.5);
+  // floor(y) for 0.5 <= y < 2^52, exactly: y + 2^52 rounded down lands on
+  // the integer 2^52 + floor(y) (the spacing there is 1), and taking 2^52
+  // off is exact. At y >= 2^52 (and at inf) the clamp binds, and f is not
+  // used
+  const double f = __dsub_rn(__dadd_rd(y, kTwo52), kTwo52);
+  const bool binds = y >= (pos ? qmax : qmax + 1.0);
+  const double held = pos ? __dsub_rn(s, qmax - 1.0) : __dadd_rn(s, qmax);
+  const double fed = pos ? __dsub_rn(s, f) : __dadd_rn(s, f);
+  return binds ? held : fed;
+}
+
+// The int32 coefficient of a tap's sum s, as the plain version rounds,
+// clamps and casts it (the clamp in int32 on the saturated cast of f; its
+// cast of a NaN is the card's), and the tap's round margin |y - rint(y)|,
+// y = |s| + 0.5 (the same bits as s + 0.5 or 0.5 - s).
+__device__ __forceinline__ int32_t quantize_value(double s, int qmax,
+                                                  double& margin) {
+  const double y = __dadd_rn(fabs(s), 0.5);
+  const int32_t f = __double2int_rz(floor(y));  // saturates at inf
+  margin = fabs(__dsub_rn(y, rint(y)));
+  const int32_t v = s >= 0.0 ? min(f, qmax - 1) : -min(f, qmax);
+  return s == s ? v : static_cast<int32_t>(s);
+}
+
+// split slots: 0 issuing the staging copies, 1 waiting for them and the
+// barrier, 2 max |c|, rshift and the products, 3 the barrier before the
+// chain, 4 the chain, 5 the stores
+template <bool kExact>
 __global__ void __launch_bounds__(kQThreads)
-    quantize_kernel(const double* __restrict__ coefs, int32_t* __restrict__ qc,
-                    int32_t* __restrict__ rshift, int64_t rows, int order,
+    quantize_kernel(const QGroup g, int32_t* __restrict__ qc,
+                    int64_t qc_stride, int32_t* __restrict__ rshift,
+                    int64_t rs_layer, int64_t rs_row,
+                    double* __restrict__ round_margin,
+                    double* __restrict__ scale_margin, int64_t rows,
                     int nbits) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kQThreads + threadIdx.x;
-  if (r >= rows) return;
-  const double* c = coefs + r * order;
-  int32_t* q = qc + r * order;
-  double max_abs = 0.0;
-  for (int t = 0; t < order; ++t) {
-    const double v = fabs(__ldg(c + t));
-    max_abs = (v != v || v > max_abs) ? v : max_abs;  // amax keeps NaN
+  __shared__ double sm[kQSmem];
+  __shared__ int s_order[kQMaxLayers], s_scol[kQMaxLayers],
+      s_col[kQMaxLayers];
+  __shared__ int s_index[kQMaxLayers], s_rank[kQMaxLayers];
+  __shared__ bool s_low[kQMaxItems];
+  __shared__ double s_scale_m[kQMaxItems], s_round_m[kQMaxItems];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int T = g.tile_rows, S = g.stride;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * T;
+  const int nr = rows - r0 < T ? static_cast<int>(rows - r0) : T;
+  const int items = g.count * T;
+  const double qmax = static_cast<double>(1u << (nbits - 1));
+  const double lowthr = pow2_exact(-(nbits - 1));
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  SPLIT_START(blockIdx.x == 0 && tid == 0);
+
+  // 1. stage: a warp a row, the lanes over its taps; the descriptor read
+  // once into registers, the shared address taken once
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(sm));
+#pragma unroll
+  for (int l = 0; l < kQMaxLayers; ++l) {
+    if (l < g.count) {
+      const double* const src0 = g.layer[l].src;
+      const int64_t stride = g.layer[l].stride;
+      const int order = g.layer[l].order;
+      const int scol = g.layer[l].scol;
+      if (tid == 0) {
+        s_order[l] = order;
+        s_scol[l] = scol;
+        s_col[l] = g.layer[l].col;
+        s_index[l] = g.layer[l].index;
+        s_rank[g.layer[l].index] = l;
+      }
+      const double* src = src0 + (r0 + warp) * stride;
+      unsigned dst = sbase + 8u * (warp * S + scol + lane);
+      for (int r = warp; r < nr; r += kQWarps) {
+#pragma unroll
+        for (int q = 0; q < kQTaps; ++q) {
+          const int t = lane + 32 * q;
+          if (t < order) cp_async8(dst + 256u * q, src + t);
+        }
+        src += kQWarps * stride;
+        dst += 8u * kQWarps * S;
+      }
+    }
   }
-  const bool is_zero = max_abs <= ldexp(1.0, -(nbits - 1));
-  int e = 0;
-  frexp(is_zero ? 1.0 : max_abs, &e);
-  const int rs = min(max((nbits - 1) - e, 1), 15);
-  const double scale = exp2(static_cast<double>(rs));
-  const double qmax = static_cast<double>(1 << (nbits - 1));
-  double qerr = 0.0;
-#pragma unroll 4
-  for (int t = order - 1; t >= 0; --t) {
-    qerr = __dadd_rn(qerr, __dmul_rn(__ldg(c + t), scale));
-    // round half away from zero
-    double v = qerr >= 0.0 ? floor(__dadd_rn(qerr, 0.5))
-                           : -floor(__dadd_rn(-qerr, 0.5));
-    v = v < -qmax ? -qmax : (v > qmax - 1.0 ? qmax - 1.0 : v);
-    qerr = __dsub_rn(qerr, v);
-    q[t] = is_zero ? 0 : static_cast<int32_t>(v);
+  SPLIT_MARK(0, 0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  SPLIT_MARK(1, sm[0]);
+
+  // 1'. max |c|, rshift, products: eight lanes an item, item k = 4 * warp
+  // + lane / 8; a lane takes taps sub, sub + 8, ... of it
+  [[maybe_unused]] double split_dep = 0.0;
+  {
+    const int k = 4 * warp + (lane >> 3), sub = lane & 7;
+    const int l = q_layer(k, T), r = k - l * T;
+    const bool on = k < items && r < nr;
+    const int order = on ? s_order[l] : 0;
+    double* row = sm + r * S + (on ? s_scol[l] : 0);
+    double c[kQLaneTaps];
+    double a[kQLaneTaps];
+#pragma unroll
+    for (int q = 0; q < kQLaneTaps; ++q) {
+      const int t = sub + 8 * q;
+      c[q] = t < order ? row[t] : 0.0;
+      a[q] = fabs(c[q]);
+      if constexpr (kExact) a[q] = a[q] == a[q] ? a[q] : 0.0;  // NaN: 0
+    }
+    // max |c|: a tree in registers, then across the eight lanes (exact in
+    // any order; on the batched variant a NaN wins, as amax's does)
+    const auto wider = [](double x, double o) {
+      return (o > x || (!kExact && o != o)) ? o : x;
+    };
+    static_assert(kQLaneTaps == 16, "a tree of four levels");
+#pragma unroll
+    for (int q = 0; q < 8; ++q) a[q] = wider(a[q], a[q + 8]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[q] = wider(a[q], a[q + 4]);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) a[q] = wider(a[q], a[q + 2]);
+    double max_abs = wider(a[0], a[1]);
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) {
+      max_abs = wider(max_abs, __shfl_xor_sync(kFullMask, max_abs, off));
+    }
+    const bool low = max_abs <= lowthr;
+    int e = 0;
+    int rs;
+    if constexpr (kExact) {
+      frexp(max_abs, &e);
+      rs = static_cast<int>(static_cast<unsigned>(nbits - 1) -
+                            static_cast<unsigned>(e));
+    } else {
+      frexp(low ? 1.0 : max_abs, &e);
+      rs = min(max((nbits - 1) - e, 1), 15);
+    }
+    const double scale = pow2_exact(rs);
+#pragma unroll
+    for (int q = 0; q < kQLaneTaps; ++q) {
+      const int t = sub + 8 * q;
+      if (t < order) {
+        double p = __dmul_rn(c[q], scale);
+        if constexpr (kExact) p = p == p ? p : 0.0;
+        row[t] = p;
+        split_dep = p;
+      }
+    }
+    if (on && sub == 0) {
+      s_low[k] = low;
+      rshift[s_index[l] * rs_layer + (r0 + r) * rs_row] = low ? nbits : rs;
+      if constexpr (kExact) {
+        const int em1 = static_cast<int>(static_cast<unsigned>(e) - 1u);
+        double fm = nan_min(__dsub_rn(max_abs, pow2_exact(em1)),
+                            __dsub_rn(pow2_exact(e), max_abs));
+        fm = __ddiv_rn(fm, fmax(max_abs, 1e-300));
+        const double lm =
+            __ddiv_rn(fabs(__dsub_rn(max_abs, lowthr)), lowthr);
+        s_scale_m[k] = nan_min(low ? inf : fm, lm);
+      }
+    }
   }
-  rshift[r] = is_zero ? nbits : rs;
+  SPLIT_MARK(2, split_dep);
+  __syncthreads();
+  SPLIT_MARK(3, sm[0]);
+
+  // 2. the chains, one a lane of warp 0: only s and the error fed back
+  // are on it; s goes over p[t] in shared memory
+  if (warp == 0) {
+    const int l = q_layer(lane, T), r = lane - l * T;
+    if (lane < items && r < nr) {
+      const int order = s_order[l];
+      double* row = sm + r * S + s_scol[l];
+      double qerr = 0.0;
+      int t = order - 1;
+      const int groups = order >> 3;
+      double cur[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cur[i] = groups ? row[t - i] : 0.0;
+      for (int gi = 0; gi < groups; ++gi) {
+        double next[8];
+        const bool more = gi + 1 < groups;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) next[i] = more ? row[t - 8 - i] : 0.0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const double s = __dadd_rn(qerr, cur[i]);
+          row[t - i] = s;
+          qerr = quantize_feedback(s, qmax);
+        }
+        t -= 8;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) cur[i] = next[i];
+      }
+      for (; t >= 0; --t) {
+        const double s = __dadd_rn(qerr, row[t]);
+        row[t] = s;
+        qerr = quantize_feedback(s, qmax);
+      }
+      SPLIT_MARK(4, qerr);
+    }
+  }
+  __syncthreads();
+
+  // 3. the int coefficients from the sums, out coalesced (0 on low rows),
+  // and on the exact variant each item's round margin: eight lanes an item
+  // as in 1.
+  [[maybe_unused]] int32_t split_out = 0;
+  {
+    const int k = 4 * warp + (lane >> 3), sub = lane & 7;
+    const int l = q_layer(k, T), r = k - l * T;
+    const bool on = k < items && r < nr;
+    const int order = on ? s_order[l] : 0;
+    const double* row = sm + r * S + (on ? s_scol[l] : 0);
+    int32_t* dst = qc + (r0 + r) * qc_stride + (on ? s_col[l] : 0);
+    const bool low = on && s_low[k];
+    const int qi = 1 << (nbits - 1);
+    // every tap into registers first, no branch, then the stores
+    int32_t v[kQLaneTaps];
+    double rmin = inf;
+#pragma unroll
+    for (int q = 0; q < kQLaneTaps; ++q) {
+      const int t = sub + 8 * q;
+      const bool in = t < order;
+      double d;
+      v[q] = quantize_value(row[in ? t : 0], qi, d);
+      d = in ? d : inf;
+      rmin = (d != d || d < rmin) ? d : rmin;  // amin: a NaN stays
+    }
+#pragma unroll
+    for (int q = 0; q < kQLaneTaps; ++q) {
+      if (sub + 8 * q < order) dst[sub + 8 * q] = low ? 0 : v[q];
+    }
+    split_out = v[0];
+    if constexpr (kExact) {
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) {
+        rmin = nan_min(rmin, __shfl_xor_sync(kFullMask, rmin, off));
+      }
+      if (on && sub == 0) s_round_m[k] = rmin;
+      __syncthreads();
+    }
+  }
+  if constexpr (kExact) {
+    if (tid < nr) {
+      // the caller's layer order, as its fold over the layers runs
+      double sm_min = inf, rm_min = inf;
+      for (int i = 0; i < g.count; ++i) {
+        const int k = s_rank[i] * T + tid;
+        sm_min = nan_min(sm_min, s_scale_m[k]);
+        rm_min = nan_min(rm_min, s_low[k] ? inf : s_round_m[k]);
+      }
+      scale_margin[r0 + tid] = sm_min;
+      round_margin[r0 + tid] = rm_min;
+    }
+  }
+  SPLIT_MARK(5, split_out);
+  SPLIT_END();
 }
 
 // -- levinson_durbin ---------------------------------------------------------
@@ -441,7 +774,7 @@ __global__ void __launch_bounds__(kPdThreads)
                    const int32_t* __restrict__ log2u,
                    const int32_t* __restrict__ rshift,
                    int32_t* __restrict__ out, int64_t tiles, int n,
-                   int order) {
+                   int order, int64_t coef_stride) {
   __shared__ __align__(16) int32_t xs[kPdHist + kPdTile];
   __shared__ __align__(16) int32_t cr[kPdCoefs];
   const int tid = threadIdx.x;
@@ -452,7 +785,7 @@ __global__ void __launch_bounds__(kPdThreads)
   const int g0 = static_cast<int>(blockIdx.x - row * tiles) * kPdTile;
   const int l2 = __ldg(log2u + row);
   const int rs = __ldg(rshift + row);
-  const int32_t cv = tid < order ? __ldg(coefs + row * order + tid) : 0;
+  const int32_t cv = tid < order ? __ldg(coefs + row * coef_stride + tid) : 0;
   const int32_t* xr = x + row * n;
   // xs[h] = x[g0 - kPdHist + h], 0 outside the row
   const int base = g0 - kPdHist;
@@ -623,18 +956,62 @@ void levinson_launch(const double* ac, double* lpc, double* parcor,
 // launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch.
 
-// coefs [rows, order] float64 -> qc [rows, order], rshift [rows] int32;
-// 1 <= order <= 128, 1 <= nbits <= 31.
-extern "C" int linne_quantize_coefficients(const double* coefs, int32_t* qc,
-                                           int32_t* rshift, int64_t rows,
-                                           int order, int nbits,
-                                           void* stream) {
-  if (rows < 1 || order < 1 || order > kMaxOrder || nbits < 1 || nbits > 31) {
+// count (1..4) layers of the same rows: layer i's taps at srcs[i] + row *
+// strides[i] + t (float64), orders[i] (1..128) taps, its int coefficients
+// to qc[row * qc_stride + cols[i] + t] and its rshift to rshift[i *
+// rs_layer + row * rs_row] (int32); 1 <= nbits <= 31. exact selects the
+// byte-exact fit's variant, which also writes round_margin[row] and
+// scale_margin[row] (float64, folded over the layers).
+extern "C" int linne_quantize_layers(int count, const void* const* srcs,
+                                     const int64_t* strides,
+                                     const int* orders, const int* cols,
+                                     int32_t* qc, int64_t qc_stride,
+                                     int32_t* rshift, int64_t rs_layer,
+                                     int64_t rs_row, double* round_margin,
+                                     double* scale_margin, int64_t rows,
+                                     int nbits, int exact, void* stream) {
+  if (count < 1 || count > kQMaxLayers || rows < 1 || nbits < 1 ||
+      nbits > 31 || (exact && (!round_margin || !scale_margin))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto grid = static_cast<unsigned>((rows + kQThreads - 1) / kQThreads);
-  quantize_kernel<<<grid, kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      coefs, qc, rshift, rows, order, nbits);
+  int by_order[kQMaxLayers];
+  for (int i = 0; i < count; ++i) {
+    if (orders[i] < 1 || orders[i] > kMaxOrder) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // insertion sort, longest order first, ties in the caller's order
+    int j = i;
+    for (; j > 0 && orders[by_order[j - 1]] < orders[i]; --j) {
+      by_order[j] = by_order[j - 1];
+    }
+    by_order[j] = i;
+  }
+  QGroup g{};
+  g.count = count;
+  g.tile_rows = kQMaxItems / count;
+  int scol = 0;
+  for (int l = 0; l < count; ++l) {
+    const int i = by_order[l];
+    g.layer[l] = {static_cast<const double*>(srcs[i]), strides[i], orders[i],
+                  cols[i], i, scol};
+    scol += orders[i];
+  }
+  g.stride = scol | 1;
+  const int64_t ctas = (rows + g.tile_rows - 1) / g.tile_rows;
+  if (g.tile_rows * g.stride > kQSmem || ctas > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned>(ctas);
+  if (exact) {
+    quantize_kernel<true><<<grid, kQThreads, 0, st>>>(
+        g, qc, qc_stride, rshift, rs_layer, rs_row, round_margin,
+        scale_margin, rows, nbits);
+  } else {
+    quantize_kernel<false><<<grid, kQThreads, 0, st>>>(
+        g, qc, qc_stride, rshift, rs_layer, rs_row, nullptr, nullptr, rows,
+        nbits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -681,14 +1058,16 @@ extern "C" int linne_ddiv_probe(double x, int n, long long* cycles,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [rows, n], coefs [rows, order], log2u [rows], rshift [rows] int32 ->
-// out [rows, n] int32; 1 <= order <= 128, n >= 1.
+// x [rows, n], coefs [rows, order] (row r at coefs + r * coef_stride),
+// log2u [rows], rshift [rows] int32 -> out [rows, n] int32;
+// 1 <= order <= 128, n >= 1.
 extern "C" int linne_predict_dense(const int32_t* x, const int32_t* coefs,
                                    const int32_t* log2u,
                                    const int32_t* rshift, int32_t* out,
                                    int64_t rows, int n, int order,
-                                   void* stream) {
-  if (rows < 1 || n < 1 || order < 1 || order > kMaxOrder) {
+                                   int64_t coef_stride, void* stream) {
+  if (rows < 1 || n < 1 || order < 1 || order > kMaxOrder ||
+      coef_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t tiles = (n + kPdTile - 1) / kPdTile;
@@ -696,6 +1075,6 @@ extern "C" int linne_predict_dense(const int32_t* x, const int32_t* coefs,
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   predict_kernel<<<static_cast<unsigned>(ctas), kPdThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      x, coefs, log2u, rshift, out, tiles, n, order);
+      x, coefs, log2u, rshift, out, tiles, n, order, coef_stride);
   return static_cast<int>(cudaGetLastError());
 }

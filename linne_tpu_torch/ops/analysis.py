@@ -393,6 +393,31 @@ def quantize_coefficients(coefs: torch.Tensor, nbits: int = 8):
             rshift.reshape(batch_shape))
 
 
+def quantize_layers(coefs: Sequence[torch.Tensor], nbits: int = 8):
+    """quantize_coefficients on every layer of a batch at once.
+
+    coefs: 1..4 layers [..., order_l] float (the same batch shape).
+    Returns (int_coef[..., sum of orders] int32, the layers side by side
+    in the given order; rshift[layers, ...] int32). CPU tensors take
+    `_quantize_layers_plain`; any other launches the kernel once (bit-equal
+    to it) or raises."""
+    if coefs[0].device.type == "cpu":
+        return _quantize_layers_plain(coefs, nbits)
+    batch_shape = tuple(coefs[0].shape[:-1])
+    int_coef, rshift = analysis_scans.quantize_layers(
+        [c.reshape(-1, c.shape[-1]) for c in coefs], nbits)
+    return (int_coef.reshape(batch_shape + (-1,)),
+            rshift.reshape((len(coefs),) + batch_shape))
+
+
+def _quantize_layers_plain(coefs: Sequence[torch.Tensor], nbits: int = 8):
+    """quantize_layers as `_quantize_coefficients_plain` a layer: the
+    grouped kernel's plain version."""
+    outs = [_quantize_coefficients_plain(c, nbits) for c in coefs]
+    return (torch.cat([q for q, _ in outs], dim=-1),
+            torch.stack([r for _, r in outs]))
+
+
 def _quantize_coefficients_plain(coefs: torch.Tensor, nbits: int = 8):
     """quantize_coefficients as batched torch ops, a Python loop over the
     taps: the kernel's plain version."""

@@ -1,21 +1,29 @@
-"""The serial loops of the batched encode as CUDA kernels.
+"""The serial loops of the batched encode, and the byte-exact fit's
+quantizer, as CUDA kernels.
 
 The JAX package runs three recursions of its default encode as
 `lax.scan` loops inside jitted stages (linne_tpu/ops/analysis.py
 `levinson_durbin`, `quantize_coefficients`; linne_tpu/ops/intops.py
-`_predict_dense`). Eager torch would dispatch a dozen ops for every step of
-each; here each is one launch of a hand-written kernel
-(csrc/analysis_scans.cu). The plain torch versions stay in
-ops/analysis.py (`_levinson_durbin_plain`, `_quantize_coefficients_plain`)
-and ops/intops.py (`_predict_dense_plain`), whose public functions send a
-CPU tensor to the plain version and a CUDA tensor here. There is no
-fallback from one to the other.
+`_predict_dense`), and the byte-exact fit's quantizer as a loop over the
+taps (linne_tpu/ops/exact_device.py `_quantize_layer`). Eager torch would
+dispatch a dozen ops for every step of each; here each is one launch of a
+hand-written kernel (csrc/analysis_scans.cu). The plain torch versions
+stay in ops/analysis.py (`_levinson_durbin_plain`,
+`_quantize_coefficients_plain`, `_quantize_layers_plain`), ops/intops.py
+(`_predict_dense_plain`) and ops/exact_device.py (`_quantize_layer_plain`,
+`_quantize_layers_plain`), whose public functions send a CPU tensor to the
+plain version and a CUDA tensor here. There is no fallback from one to the
+other.
 
-The wrappers take the flat [rows, ...] layout, contiguous, on a CUDA
-device, and raise ValueError on anything else (the device is checked
-last). They launch on the
-tensor's own device and its current stream. `KERNEL_LAUNCHES[name]` counts
-each kernel's launches.
+The wrappers take the flat [rows, ...] layout on a CUDA device
+(contiguous, except where a wrapper says which strides it takes), and
+raise ValueError on anything else (the device is checked last). They
+launch on the tensor's own device and its current stream.
+`KERNEL_LAUNCHES[name]` counts each kernel's launches: the quantizer's
+two variants count apart, the batched encoder's as
+"quantize_coefficients" (`quantize_layers`, and `quantize_coefficients`
+for one layer), the byte-exact fit's as "quantize_layer"
+(`quantize_layers_exact`).
 
 The quantizer and the predict cascade are bit-equal to their plain
 versions. The recursion takes each step's numerator in Schur form (the
@@ -32,7 +40,9 @@ import torch
 
 from . import _kernels
 
-KERNELS = ("levinson_durbin", "quantize_coefficients", "predict_dense")
+# the batched encoder's kernels, then the byte-exact fit's quantizer
+KERNELS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
+           "quantize_layer")
 
 # Launches of each kernel since import (or since a caller reset them);
 # incremented only where the kernel is launched.
@@ -42,13 +52,17 @@ KERNEL_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # predict cascade take orders 1..128.
 KERNEL_MAX_ORDER = 128
 
+# The layers one quantizer launch takes (the format's presets have 2-3).
+QUANTIZE_MAX_LAYERS = 4
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
     "levinson_durbin": [_P, _P, _P, _L, _I, _P],
-    "quantize_coefficients": [_P, _P, _P, _L, _I, _I, _P],
-    "predict_dense": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "quantize_layers": [_I, _P, _P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _L,
+                        _I, _I, _P],
+    "predict_dense": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
     "ddiv_probe": [ctypes.c_double, _I, _P, _P, _P],
 }
 _fns: dict = {}
@@ -92,8 +106,11 @@ def _check_order(order: int) -> None:
                          f"{KERNEL_MAX_ORDER}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = _fn(name)
+def _launch(name: str, device: torch.device, *args,
+            entry: str | None = None) -> None:
+    """Launch kernel `name` through the C entry `entry` (default: the
+    same name) and count it."""
+    fn = _fn(entry or name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -121,26 +138,131 @@ def levinson_durbin(ac: torch.Tensor, order: int, with_parcor: bool = False):
     return (lpc, parcor) if with_parcor else lpc
 
 
+def _check_nbits(nbits: int) -> None:
+    if not 1 <= nbits <= 31:
+        raise ValueError(f"nbits {nbits} outside 1..31")
+
+
+def _check_layers(count: int) -> None:
+    if not 1 <= count <= QUANTIZE_MAX_LAYERS:
+        raise ValueError(f"{count} layers: a quantizer launch takes 1.."
+                         f"{QUANTIZE_MAX_LAYERS}")
+
+
+def _quantize_launch(name, device, layers, rows, nbits, int_coef, rshift,
+                     rs_strides, margins=(None, None)) -> None:
+    """One launch of the quantizer over `layers`, (source, row stride,
+    order, output column) each."""
+    count = len(layers)
+    srcs = (ctypes.c_void_p * count)(*(src for src, _, _, _ in layers))
+    strides = (ctypes.c_int64 * count)(*(st for _, st, _, _ in layers))
+    orders = (ctypes.c_int * count)(*(o for _, _, o, _ in layers))
+    cols = (ctypes.c_int * count)(*(c for _, _, _, c in layers))
+    round_margin, scale_margin = margins
+    _launch(name, device, count, srcs, strides, orders, cols,
+            int_coef.data_ptr(), int_coef.stride(0), rshift.data_ptr(),
+            *rs_strides,
+            round_margin.data_ptr() if round_margin is not None else None,
+            scale_margin.data_ptr() if scale_margin is not None else None,
+            rows, nbits, int(round_margin is not None),
+            entry="quantize_layers")
+
+
+def quantize_layers(coefs, nbits: int = 8):
+    """coefs: 1..4 layers [rows, order_l] float64 (the same rows; each
+    row's taps contiguous, rows at any stride) -> (int_coef [rows, sum of
+    orders], rshift [layers, rows]) int32: the error-feedback quantizer of
+    ops/analysis.py:_quantize_coefficients_plain on every layer, in one
+    launch, bit for bit. int_coef holds the layers side by side in the
+    given order."""
+    coefs = list(coefs)
+    _check_layers(len(coefs))
+    _check_nbits(nbits)
+    for li, c in enumerate(coefs):
+        if not isinstance(c, torch.Tensor):
+            raise ValueError(f"layer {li} must be a torch.Tensor")
+        if c.dtype != torch.float64:
+            raise ValueError(f"layer {li} must be torch.float64, got "
+                             f"{c.dtype}")
+        if c.dim() != 2:
+            raise ValueError(f"layer {li} must be [rows, order], got "
+                             f"{tuple(c.shape)}")
+        _check_order(c.shape[1])
+        if c.device != coefs[0].device:
+            raise ValueError(f"layer {li} is on {c.device}, expected "
+                             f"{coefs[0].device}")
+        if c.shape[0] != coefs[0].shape[0]:
+            raise ValueError(f"row counts differ: layer {li} has "
+                             f"{c.shape[0]}, layer 0 {coefs[0].shape[0]}")
+        if c.stride(1) != 1 and c.shape[1] > 1:
+            raise ValueError(f"layer {li}: a row's taps must be contiguous")
+    device = coefs[0].device
+    _check_device(device)
+    rows = coefs[0].shape[0]
+    total = sum(c.shape[1] for c in coefs)
+    int_coef = torch.empty((rows, total), dtype=torch.int32, device=device)
+    rshift = torch.empty((len(coefs), rows), dtype=torch.int32,
+                         device=device)
+    if rows:
+        layers, col = [], 0
+        for c in coefs:
+            layers.append((c.data_ptr(), c.stride(0), c.shape[1], col))
+            col += c.shape[1]
+        _quantize_launch("quantize_coefficients", device, layers, rows,
+                         nbits, int_coef, rshift, (rows, 1))
+    return int_coef, rshift
+
+
 def quantize_coefficients(coefs: torch.Tensor, nbits: int = 8):
     """coefs [rows, order] float64 -> (int_coef [rows, order], rshift
-    [rows]) int32: the error-feedback quantizer of
-    ops/analysis.py:_quantize_coefficients_plain, bit for bit."""
+    [rows]) int32: quantize_layers for one layer."""
     _check(torch.float64, coefs=coefs)
     if coefs.dim() != 2:
         raise ValueError(f"coefs must be [rows, order], got "
                          f"{tuple(coefs.shape)}")
-    _check_order(coefs.shape[1])
-    if not 1 <= nbits <= 31:
-        raise ValueError(f"nbits {nbits} outside 1..31")
-    _check_device(coefs.device)
-    rows, order = coefs.shape
-    int_coef = torch.empty((rows, order), dtype=torch.int32,
-                           device=coefs.device)
-    rshift = torch.empty((rows,), dtype=torch.int32, device=coefs.device)
+    int_coef, rshift = quantize_layers([coefs], nbits)
+    return int_coef, rshift[0]
+
+
+def quantize_layers_exact(params: torch.Tensor, orders, nbits: int):
+    """params [rows, width] float64 (each row's taps contiguous, rows at any
+    stride; the byte-exact fit's arena), whose first sum(orders) columns
+    hold 1..4 layers side by side -> (int_coef [rows, sum of orders] int32,
+    rshift [rows, layers] int32, round_margin [rows] float64, scale_margin
+    [rows] float64): ops/exact_device.py:_quantize_layers_plain, the
+    byte-exact fit's quantizer with the guard's margins folded over the
+    layers, in one launch, bit for bit."""
+    orders = [int(o) for o in orders]
+    _check_layers(len(orders))
+    for o in orders:
+        _check_order(o)
+    _check_nbits(nbits)
+    if not isinstance(params, torch.Tensor):
+        raise ValueError("params must be a torch.Tensor")
+    if params.dtype != torch.float64:
+        raise ValueError(f"params must be torch.float64, got {params.dtype}")
+    if params.dim() != 2 or params.shape[1] < sum(orders):
+        raise ValueError(f"params must be [rows, >= {sum(orders)}], got "
+                         f"{tuple(params.shape)}")
+    if params.stride(1) != 1 and params.shape[1] > 1:
+        raise ValueError("params: a row's taps must be contiguous")
+    _check_device(params.device)
+    rows = params.shape[0]
+    dev = params.device
+    int_coef = torch.empty((rows, sum(orders)), dtype=torch.int32,
+                           device=dev)
+    rshift = torch.empty((rows, len(orders)), dtype=torch.int32, device=dev)
+    margins = torch.empty((2, rows), dtype=torch.float64, device=dev)
     if rows:
-        _launch("quantize_coefficients", coefs.device, coefs.data_ptr(),
-                int_coef.data_ptr(), rshift.data_ptr(), rows, order, nbits)
-    return int_coef, rshift
+        layers, col = [], 0
+        for o in orders:
+            layers.append((params.data_ptr() + 8 * col, params.stride(0), o,
+                           col))
+            col += o
+        _quantize_launch("quantize_layer", dev, layers, rows, nbits,
+                         int_coef, rshift, (1, len(orders)),
+                         (margins[0], margins[1]))
+    return int_coef, rshift, margins[0], margins[1]
 
 
 def predict_dense(x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
@@ -148,8 +270,14 @@ def predict_dense(x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
     """x [rows, n], coefs [rows, order], log2u [rows], rshift [rows] int32
     -> [rows, n] int32: the masked full-order FIR with per-unit passthrough
     of ops/intops.py:_predict_dense_plain, bit for bit. u_max (a power of
-    two) must divide n, and every log2u be at most log2(u_max)."""
-    _check(torch.int32, x=x, coefs=coefs, log2u=log2u, rshift=rshift)
+    two) must divide n, and every log2u be at most log2(u_max). coefs'
+    rows may lie at any stride (a layer's columns of the quantizer's
+    grouped output); each row's taps are contiguous."""
+    _check(torch.int32, x=x, log2u=log2u, rshift=rshift)
+    if not isinstance(coefs, torch.Tensor) or coefs.dtype != torch.int32:
+        raise ValueError("coefs must be a torch.int32 tensor")
+    if coefs.device != x.device:
+        raise ValueError(f"coefs is on {coefs.device}, expected {x.device}")
     if x.dim() != 2 or coefs.dim() != 2 or log2u.dim() != 1 \
             or rshift.dim() != 1:
         raise ValueError("expected x [rows, n], coefs [rows, order], log2u "
@@ -157,6 +285,8 @@ def predict_dense(x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
     rows, n = x.shape
     order = coefs.shape[1]
     _check_order(order)
+    if coefs.stride(-1) != 1 and order > 1:
+        raise ValueError("coefs: a row's taps must be contiguous")
     if coefs.shape[0] != rows or log2u.shape[0] != rows \
             or rshift.shape[0] != rows:
         raise ValueError(f"row counts differ: x {tuple(x.shape)}, coefs "
@@ -170,7 +300,7 @@ def predict_dense(x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
     if out.numel():
         _launch("predict_dense", x.device, x.data_ptr(), coefs.data_ptr(),
                 log2u.data_ptr(), rshift.data_ptr(), out.data_ptr(), rows, n,
-                order)
+                order, coefs.stride(0))
     return out
 
 

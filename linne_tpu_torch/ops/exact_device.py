@@ -15,6 +15,10 @@ Faithfulness contract (matches `exact` op for op):
   the same 0.0: on CUDA tensors in the hand-written kernels of
   `ops/exact_serial.py` (`csrc/exact_serial.cu`), on CPU tensors in their
   plain torch versions;
+- the quantizer's error feedback runs tap by tap, every layer of a fit in
+  one launch of `analysis_scans.quantize_layers_exact`
+  (`csrc/analysis_scans.cu`) on CUDA tensors, in its plain torch version
+  (`_quantize_layers_plain`) on CPU tensors;
 - the per-sample unit prediction is a serial chain over taps but a vector
   over time;
 - zero-signal early-outs (|r0| < FLT_EPSILON) are computed as masks over
@@ -54,6 +58,7 @@ import torch
 
 from ..constants import FLT_EPSILON, FLT_MAX
 from ..exact.lpc import _welch_window
+from . import analysis_scans as _as
 from . import exact_serial as _ks
 
 _MAX_NUM_UNITS = 128
@@ -231,7 +236,44 @@ def _frexp_exponent(x: torch.Tensor) -> torch.Tensor:
     return torch.frexp(x)[1].to(torch.int32)
 
 
-def _quantize_layer(coefs: torch.Tensor, nbits: int):
+def _quantize_layers(params: torch.Tensor, orders: Sequence[int],
+                     nbits: int):
+    """The error-feedback quantizer on every layer of a fit: params [B, W]
+    f64 holds the layers' final params side by side from column 0.
+    Returns (int_coef [B, sum(orders)] i32, rshift [B, L] i32,
+    round_margin [B] f64, scale_margin [B] f64), each margin the minimum
+    over the layers of `_quantize_layer_plain`'s. A CPU tensor takes
+    `_quantize_layers_plain`; any other launches the kernel once
+    (`analysis_scans.quantize_layers_exact`, bit-equal to it) or raises."""
+    if params.device.type == "cpu":
+        return _quantize_layers_plain(params, orders, nbits)
+    return _as.quantize_layers_exact(params, orders, nbits)
+
+
+def _quantize_layers_plain(params: torch.Tensor, orders: Sequence[int],
+                           nbits: int):
+    """_quantize_layers as `_quantize_layer_plain` a layer, the margins
+    folded with torch.minimum in the layers' order: the kernel's plain
+    version."""
+    B = params.shape[0]
+    int_parts, rshifts = [], []
+    round_margin = torch.full((B,), math.inf, dtype=_F64,
+                              device=params.device)
+    scale_margin = torch.full_like(round_margin, math.inf)
+    col = 0
+    for order in orders:
+        ic, rs, rm, sm = _quantize_layer_plain(
+            params[:, col:col + order], nbits)
+        int_parts.append(ic)
+        rshifts.append(rs)
+        round_margin = torch.minimum(round_margin, rm)
+        scale_margin = torch.minimum(scale_margin, sm)
+        col += order
+    return (torch.cat(int_parts, dim=1), torch.stack(rshifts, dim=1),
+            round_margin, scale_margin)
+
+
+def _quantize_layer_plain(coefs: torch.Tensor, nbits: int):
     """Error-feedback quantizer, tail-to-head (lpc.c:981-1040; oracle:
     exact/lpc.py quantize_coefficients). coefs: [B, P] final f64 params.
     Returns (int_coef [B, P] i32, rshift [B] i32, round_margin [B] f64,
@@ -480,7 +522,6 @@ def _build_fit_fn(layer_num_params: tuple, ridge_terms: tuple, n: int,
         raise ValueError("empty ridge list")
 
     scale = 2.0 ** (-(bits_per_sample - 1))
-    offsets = np.concatenate([[0], np.cumsum(layer_num_params)])
     T = len(ridge_terms)
 
     def fit(signals: torch.Tensor) -> dict:
@@ -525,17 +566,8 @@ def _build_fit_fn(layer_num_params: tuple, ridge_terms: tuple, n: int,
                                    math.inf, term_gap)
             sel_margin = torch.minimum(sel_margin, term_gap)
 
-        int_parts = []
-        rshifts = []
-        round_margin = torch.full((B,), math.inf, dtype=_F64, device=dev)
-        scale_margin = torch.full((B,), math.inf, dtype=_F64, device=dev)
-        for li in range(len(layer_num_params)):
-            ic, rs, rm, sm = _quantize_layer(
-                params[:, offsets[li] : offsets[li + 1]], coef_bits)
-            int_parts.append(ic)
-            rshifts.append(rs)
-            round_margin = torch.minimum(round_margin, rm)
-            scale_margin = torch.minimum(scale_margin, sm)
+        int_coefs, rshifts, round_margin, scale_margin = _quantize_layers(
+            params, layer_num_params, coef_bits)
 
         # flatten the arena in (term, layer, level) order
         ap_cols: List = []
@@ -550,8 +582,8 @@ def _build_fit_fn(layer_num_params: tuple, ridge_terms: tuple, n: int,
         return {
             "units": units,
             "params": params,
-            "int_coefs": torch.cat(int_parts, dim=1),
-            "rshifts": torch.stack(rshifts, dim=1),
+            "int_coefs": int_coefs,
+            "rshifts": rshifts,
             "best_term": best_term,
             "arena_parcor": torch.cat(ap_cols, dim=1),
             "arena_zc": torch.stack(zc_cols, dim=1),
@@ -768,7 +800,7 @@ def fold_final_pass(parcor_coef: np.ndarray, final_layers: Sequence[dict],
 
 
 def quantize_margins_np(coefs: np.ndarray, nbits: int):
-    """Host (numpy) twin of `_quantize_layer`'s guard sensors, for the -a N
+    """Host (numpy) twin of `_quantize_layer_plain`'s guard sensors, for the -a N
     path where quantization runs host-side (exact/lpc.py
     quantize_coefficients). `coefs`: [P] final f64 params of one layer row.
     Returns (round_margin, scale_margin) floats with the same semantics as

@@ -98,8 +98,10 @@ def _predict_dense(
     batch = tuple(x.shape[:-1])
     n = x.shape[-1]
     order = coefs.shape[-1]
+    # coefs may be a layer's columns of the quantizer's grouped output: the
+    # kernel reads its rows at their stride, without a copy
     out = analysis_scans.predict_dense(
-        x.reshape(-1, n).contiguous(), coefs.reshape(-1, order).contiguous(),
+        x.reshape(-1, n).contiguous(), coefs.reshape(-1, order),
         log2u.reshape(-1).contiguous(), rshift.reshape(-1).contiguous(),
         u_max)
     return out.reshape(batch + (n,))

@@ -178,6 +178,151 @@ def test_quantize_plain_ties_match_host_oracle(shift):
     assert np.any(ties != np.round(ties))  # the row holds .5 steps
 
 
+def grouped_rows(order, rows, seed, tie_shift):
+    """[rows, order] coefficients: quantize_rows blocks of 8 (seeds seed,
+    seed + 1, ...) cut to `rows`; with rows = 1 the tie row alone."""
+    if rows == 1:
+        return quantize_rows(order, seed, tie_shift)[6:7]
+    blocks = [quantize_rows(order, seed + b, tie_shift)
+              for b in range(-(-rows // 8))]
+    return np.concatenate(blocks)[:rows]
+
+
+_GROUP_ORDERS = (4, 128, 16)  # preset 7's layers, in its order
+
+
+@pytest.mark.parametrize("tie_shift", [1, 2, 5, 10, 11])
+@pytest.mark.parametrize("rows", [1, 37, 128])
+def test_quantize_layers_plain_matches_jax(rows, tie_shift):
+    """The grouped plain version (the grouped kernel's) over preset 7's
+    layers, bit for bit the JAX package's quantize_coefficients run a
+    layer, with .5 ties at shifts where XLA's CPU exp2 is exact."""
+    coefs = [grouped_rows(o, rows, 10 * o + tie_shift, tie_shift)
+             for o in _GROUP_ORDERS]
+    q, rs = A._quantize_layers_plain([_t(c) for c in coefs], 8)
+    assert q.shape == (rows, sum(_GROUP_ORDERS)) and rs.shape == (3, rows)
+    col = 0
+    for li, c in enumerate(coefs):
+        qj, rsj = jax.jit(JA.quantize_coefficients, static_argnums=1)(
+            jnp.asarray(c), 8)
+        o = c.shape[1]
+        assert np.array_equal(q[:, col:col + o].numpy(), np.asarray(qj))
+        assert np.array_equal(rs[li].numpy(), np.asarray(rsj))
+        col += o
+    tie_row = 0 if rows == 1 else 6
+    assert (rs[:, tie_row] == tie_shift).all()
+
+
+@pytest.mark.parametrize("shift", [3, 7, 12])
+def test_quantize_layers_plain_ties_match_host_oracle(shift):
+    """The grouped plain version at .5 ties at rshift 3, 7 and 12 (where
+    XLA's CPU exp2 is not exact), bit for bit the JAX package's host
+    quantizer a row and a layer."""
+    coefs = [grouped_rows(o, 37, o + shift, shift) for o in _GROUP_ORDERS]
+    q, rs = A._quantize_layers_plain([_t(c) for c in coefs], 8)
+    col = 0
+    for li, c in enumerate(coefs):
+        o = c.shape[1]
+        for r in range(c.shape[0]):
+            want_q, want_rs = JL.quantize_coefficients(c[r], o, 8)
+            assert np.array_equal(q[r, col:col + o].numpy(), want_q), (li, r)
+            assert int(rs[li, r]) == want_rs, (li, r)
+        col += o
+    assert (rs[:, 6] == shift).all()
+
+
+def _kernel_form(coefs, nbits, exact):
+    """csrc/analysis_scans.cu:quantize_kernel's arithmetic, as torch ops on
+    the CPU: the chain keeps only s and the error fed back (y = |s| + 0.5
+    for both signs of s, the clamp decided by comparing y with qmax for s
+    >= 0 or qmax + 1 for s < 0, qerr from the held or the fed-back value);
+    the ints and the round margin come from the stored sums afterwards
+    (fmin dropping nothing there: no NaN reaches it), the NaN of s kept.
+    Returns (q [rows, order] float64, rshift; round_margin, scale_margin
+    when exact)."""
+    qmax = float(1 << (nbits - 1))
+    lowthr = 2.0 ** -(nbits - 1)
+    a = coefs.abs()
+    if exact:
+        max_abs = torch.where(a == a, a, 0.0).amax(-1)
+    else:
+        max_abs = a.amax(-1)
+    low = max_abs <= lowthr
+    if exact:
+        e = torch.frexp(max_abs)[1].long()
+        rs = (nbits - 1) - e
+        em1 = e - 1
+    else:
+        e = torch.frexp(torch.where(low, 1.0, max_abs))[1].long()
+        rs = torch.clamp((nbits - 1) - e, 1, 15)
+    scale = torch.tensor([2.0 ** int(v) for v in rs.clamp(-1074, 1023)],
+                         dtype=torch.float64)
+    p = coefs * scale[:, None]
+    if exact:
+        p = torch.where(p == p, p, 0.0)
+        e2 = [torch.tensor([2.0 ** int(v) for v in x.clamp(-1074, 1023)],
+                           dtype=torch.float64) for x in (em1, e)]
+        fm = torch.minimum(max_abs - e2[0], e2[1] - max_abs)
+        fm = fm / torch.clamp(max_abs, min=1e-300)
+        lm = (max_abs - lowthr).abs() / lowthr
+        scale_m = torch.minimum(torch.where(low, np.inf, fm), lm)
+    qerr = torch.zeros_like(max_abs)
+    sums = torch.empty_like(coefs)
+    for t in range(coefs.shape[1] - 1, -1, -1):
+        s = qerr + p[:, t]
+        sums[:, t] = s
+        pos = s >= 0.0
+        y = s.abs() + 0.5
+        f = torch.floor(y)
+        binds = y >= torch.where(pos, qmax, qmax + 1.0)
+        held = torch.where(pos, s - (qmax - 1.0), s + qmax)
+        qerr = torch.where(binds, held, torch.where(pos, s - f, s + f))
+    y = sums.abs() + 0.5
+    f = torch.floor(y)
+    d = (y - torch.round(y)).abs()
+    rmin = torch.where(d.isnan().any(-1), np.nan, d.nan_to_num(np.inf)
+                       .amin(-1))
+    v = torch.where(sums >= 0.0, torch.fmin(f, torch.tensor(qmax - 1.0)),
+                    -torch.fmin(f, torch.tensor(qmax)))
+    q = torch.where(sums == sums, v, sums)
+    q = torch.where(low[:, None], 0.0, q)
+    rs = torch.where(low, nbits, rs).to(torch.int32)
+    if not exact:
+        return q, rs
+    return q, rs, torch.where(low, np.inf, rmin), scale_m
+
+
+@pytest.mark.parametrize("order", [1, 5, 32, 128])
+def test_quantize_kernel_form_matches_plain_versions(order):
+    """The kernel's form of a tap gives both plain versions' bits (ints,
+    rshift, both margins) on the edge rows: thresholds, exact .5 ties at
+    shifts 3, 7, 12, the +-128 clamp, -0.0 taps, and on the exact
+    variant NaN coefficients and +-Inf of one sign in a row."""
+    from linne_tpu_torch.ops import exact_device as ED
+
+    for shift in (3, 7, 12):
+        c = _t(quantize_rows(order, order + shift, tie_shift=shift))
+        c[0, ::2] = -0.0
+        q, rs = _kernel_form(c, 8, exact=False)
+        want_q, want_rs = A._quantize_coefficients_plain(c, 8)
+        assert torch.equal(q.to(torch.int32), want_q)
+        assert torch.equal(rs, want_rs)
+        extra = c[:4].clone()
+        extra[0, order // 2] = np.nan
+        extra[1, 0] = np.inf
+        extra[2, -1] = -np.inf
+        extra[3] = 2.0 ** (shift - 9)  # max |c| at a power of two
+        cx = torch.cat([c, extra])
+        got = _kernel_form(cx, 8, exact=True)
+        want = ED._quantize_layer_plain(cx, 8)
+        assert torch.equal(got[0].to(torch.int32), want[0])
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g.view(torch.int64) if g.is_floating_point()
+                               else g,
+                               w.view(torch.int64) if w.is_floating_point()
+                               else w)
+
+
 # -- _predict_dense ----------------------------------------------------------
 
 
@@ -244,6 +389,27 @@ def test_cpu_tensors_take_the_plain_versions():
     assert AS.KERNEL_LAUNCHES == before
 
 
+def test_cpu_tensors_take_the_grouped_plain_versions():
+    """The grouped quantizers give their plain versions' bits on the CPU
+    and launch nothing: the encoder's (quantize_layers) over [B, C, order]
+    layers, and the byte-exact fit's (exact_device._quantize_layers) over
+    an arena's columns."""
+    from linne_tpu_torch.ops import exact_device as ED
+
+    before = dict(AS.KERNEL_LAUNCHES)
+    coefs = [_t(quantize_rows(o, o)).reshape(2, 4, o) for o in (4, 32, 16)]
+    got = A.quantize_layers(coefs, 8)
+    want = A._quantize_layers_plain(coefs, 8)
+    assert got[0].shape == (2, 4, 52) and got[1].shape == (3, 2, 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    arena = torch.cat([c.reshape(8, -1) for c in coefs], dim=1)
+    got = ED._quantize_layers(arena, (4, 32, 16), 8)
+    want = ED._quantize_layers_plain(arena, (4, 32, 16), 8)
+    assert all(np.array_equal(_bits(g.numpy()), _bits(w.numpy()))
+               for g, w in zip(got, want))
+    assert AS.KERNEL_LAUNCHES == before
+
+
 def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -264,6 +430,22 @@ _ARG_CASES = {  # case: the check's words in its message
     "predict u_max": "u_max 8",
     "predict device": "unsupported device cpu",
     "public meta tensor": "unsupported device meta",
+    "group count 0": "0 layers",
+    "group count 5": "5 layers",
+    "group order": "order 129",
+    "group order 0": "order 0",
+    "group dtype": "must be torch.float64",
+    "group rows": "row counts differ",
+    "group nbits": "nbits 0",
+    "group taps": "taps must be contiguous",
+    "group device": "unsupported device cpu",
+    "exact count": "5 layers",
+    "exact order": "order 129",
+    "exact dtype": "must be torch.float64",
+    "exact width": "params must be",
+    "exact nbits": "nbits 32",
+    "exact device": "unsupported device cpu",
+    "predict taps": "taps must be contiguous",
 }
 
 
@@ -309,6 +491,37 @@ def test_wrapper_argument_checks(case):
             4),
         "public meta tensor": lambda: A.levinson_durbin(
             _meta((2, 3, 9), f64), 8),
+        "group count 0": lambda: AS.quantize_layers([]),
+        "group count 5": lambda: AS.quantize_layers(
+            [_meta((4, 8), f64)] * 5),
+        "group order": lambda: AS.quantize_layers(
+            [_meta((4, 8), f64), _meta((4, 129), f64)]),
+        "group order 0": lambda: AS.quantize_layers(
+            [_meta((4, 0), f64)]),
+        "group dtype": lambda: AS.quantize_layers(
+            [_meta((4, 8), f64), _meta((4, 16), torch.float32)]),
+        "group rows": lambda: AS.quantize_layers(
+            [_meta((4, 8), f64), _meta((5, 16), f64)]),
+        "group nbits": lambda: AS.quantize_layers([_meta((4, 8), f64)], 0),
+        "group taps": lambda: AS.quantize_layers(
+            [_meta((8, 4), f64).t()]),
+        "group device": lambda: AS.quantize_layers(
+            [torch.zeros(4, 8, dtype=f64), torch.zeros(4, 16, dtype=f64)]),
+        "exact count": lambda: AS.quantize_layers_exact(
+            _meta((4, 40), f64), (8,) * 5, 8),
+        "exact order": lambda: AS.quantize_layers_exact(
+            _meta((4, 200), f64), (4, 129), 8),
+        "exact dtype": lambda: AS.quantize_layers_exact(
+            _meta((4, 148), torch.float32), (4, 128, 16), 8),
+        "exact width": lambda: AS.quantize_layers_exact(
+            _meta((4, 147), f64), (4, 128, 16), 8),
+        "exact nbits": lambda: AS.quantize_layers_exact(
+            _meta((4, 148), f64), (4, 128, 16), 32),
+        "exact device": lambda: AS.quantize_layers_exact(
+            torch.zeros(4, 148, dtype=f64), (4, 128, 16), 8),
+        "predict taps": lambda: AS.predict_dense(
+            _meta((4, 64), i32), _meta((8, 4), i32).t(), _meta((4,), i32),
+            _meta((4,), i32), 4),
     }
     before = dict(AS.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match=_ARG_CASES[case]):

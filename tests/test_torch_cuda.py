@@ -803,6 +803,140 @@ def test_scans_quantize_kernel_ties(shift):
     assert got[1][6] == got[1][7] == shift
 
 
+# -- the grouped quantizer: both variants (quantize_kernel<E>) ----------------
+
+_QUANT_GROUPS = [(4, 128, 16), (128,), (1, 2, 3, 4)]
+_QUANT_ROWS = [1, 31, 33, 128, 517]
+
+
+def _quant(counter, fn, *args):
+    """One call of a grouped quantizer wrapper, which launches its kernel
+    once (counted under `counter`)."""
+    before = AS.KERNEL_LAUNCHES[counter]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES[counter] == before + 1
+    return got
+
+
+def _same(got, want):
+    """Bit for bit: float64 as int64 bits (NaN bits included; both ran on
+    the card), ints as they are."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.is_floating_point():
+            assert torch.equal(_bits(g), _bits(w))
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows", _QUANT_ROWS)
+@pytest.mark.parametrize("orders", _QUANT_GROUPS)
+def test_scans_quantize_group_matches_plain_version(orders, rows):
+    """The batched encoder's variant over ragged groups, the layers as
+    column slices of one tensor (rows at its stride): bit for bit the
+    grouped plain version, and the same as on contiguous copies."""
+    _require_card()
+    from chip_smoke import quantize_group
+
+    layers, _ = quantize_group(orders, rows, rows + sum(orders), width=3)
+    got = _quant("quantize_coefficients", AS.quantize_layers, layers, 8)
+    _same(got, A._quantize_layers_plain(layers, 8))
+    copies = [c.contiguous() for c in layers]
+    _same(_quant("quantize_coefficients", AS.quantize_layers, copies, 8),
+          got)
+
+
+@pytest.mark.parametrize("rows", _QUANT_ROWS)
+@pytest.mark.parametrize("orders", _QUANT_GROUPS)
+def test_scans_quantize_exact_group_matches_plain_version(orders, rows):
+    """The byte-exact fit's variant over ragged groups of an arena wider
+    than its layers, with NaN and +-Inf rows: int coefficients, rshifts
+    and both margins bit for bit the plain version on the card, and the
+    same on a contiguous copy of the layers' columns."""
+    _require_card()
+    from linne_tpu_torch.ops import exact_device as ED
+    from chip_smoke import quantize_group
+
+    _, arena = quantize_group(orders, rows, rows + sum(orders), exact=True,
+                              width=5)
+    got = _quant("quantize_layer", AS.quantize_layers_exact, arena, orders,
+                 8)
+    _same(got, ED._quantize_layers_plain(arena, orders, 8))
+    copy = arena[:, :sum(orders)].contiguous()
+    _same(_quant("quantize_layer", AS.quantize_layers_exact, copy, orders,
+                 8), got)
+
+
+@pytest.mark.parametrize("order", range(1, 129))
+def test_scans_quantize_exact_kernel_every_order(order):
+    """The byte-exact variant at every order 1-128, one layer, on
+    chip_smoke.py:quantize_special_rows (thresholds, ties, the clamp, NaN
+    and +-Inf rows, a bin edge): bit for bit the plain version, margins
+    included; the fit's _quantize_layers launches it."""
+    _require_card()
+    from linne_tpu_torch.ops import exact_device as ED
+    from chip_smoke import quantize_special_rows
+
+    c = quantize_special_rows(order, order)
+    got = _quant("quantize_layer", AS.quantize_layers_exact, c, (order,), 8)
+    _same(got, ED._quantize_layers_plain(c, (order,), 8))
+    _same(_quant("quantize_layer", ED._quantize_layers, c, (order,), 8),
+          got)
+    assert got[1][3, 0] == 8 and got[1][4, 0] == 8  # zero; the threshold
+    assert got[3][12] == 0.0  # max |c| at a bin edge
+
+
+@pytest.mark.parametrize("shift", [3, 7, 12])
+def test_scans_quantize_exact_kernel_ties(shift):
+    """Exact .5 ties at rshift 3, 7 and 12: the byte-exact variant's ints
+    and rshifts equal the port's host quantizer (exact/lpc.py) a row, its
+    round margin is 0 on the tie row, and it is the plain version's bit
+    for bit."""
+    _require_card()
+    from linne_tpu_torch.exact import lpc as HL
+    from linne_tpu_torch.ops import exact_device as ED
+
+    order = 32
+    c = _quantize_rows(order, shift, shift)
+    got = _quant("quantize_layer", AS.quantize_layers_exact, c, (order,), 8)
+    _same(got, ED._quantize_layers_plain(c, (order,), 8))
+    for r, row in enumerate(c.cpu().numpy()):
+        q, rs = HL.quantize_coefficients(row, order, 8)
+        assert np.array_equal(got[0][r].cpu().numpy(), q)
+        assert got[1][r, 0] == rs
+    assert got[2][6] == 0.0
+
+
+def test_scans_quantize_main_path_one_launch_a_batch(monkeypatch):
+    """TorchEncoder's finish stage quantizes a batch's three layers in one
+    launch, and its streams equal those with the plain quantizer forced."""
+    _require_card()
+    sigs = [_track(9 * 2048 + 300, 3), _track(2 * 2048, 4)]
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=2048, preset=7, ch_process_method=1)
+    chans, lengths = [[s[0], s[1]] for s in sigs], [s.shape[1] for s in sigs]
+    real, calls = A.quantize_layers, []
+
+    def counting(coefs, nbits):
+        calls.append(len(coefs))
+        return real(coefs, nbits)
+
+    monkeypatch.setattr(A, "quantize_layers", counting)
+    enc = TorchEncoder(batch_blocks=4, device="cuda")
+    enc.set_encode_parameter(param)
+    before = AS.KERNEL_LAUNCHES["quantize_coefficients"]
+    datas = enc.encode_many(chans, lengths)
+    launches = AS.KERNEL_LAUNCHES["quantize_coefficients"] - before
+    assert launches == len(calls) >= 3 and set(calls) == {3}
+    monkeypatch.setattr(A, "quantize_layers", A._quantize_layers_plain)
+    enc = TorchEncoder(batch_blocks=4, device="cuda")
+    enc.set_encode_parameter(param)
+    assert enc.encode_many(chans, lengths) == datas
+    assert AS.KERNEL_LAUNCHES["quantize_coefficients"] == before + launches
+
+
 def _scan_levinson_rows(rows, order, seed):
     """Autocorrelations of seeded segments after a ridge; row 0 silent."""
     seg = _segments(rows, 1, 4 * order + 16, seed)

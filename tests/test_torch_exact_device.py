@@ -425,9 +425,70 @@ def test_quantize_layer_bit_equal_to_jax():
     coefs[3, 5] = 0.5
     coefs[4] = 0.0
     want = [np.asarray(a) for a in J._quantize_layer(jnp.asarray(coefs), CB)]
-    got = [a.numpy() for a in T._quantize_layer(torch.from_numpy(coefs), CB)]
+    got = [a.numpy() for a in T._quantize_layer_plain(torch.from_numpy(coefs),
+                                                      CB)]
     for g, w in zip(got, want):
         assert _bits_equal(g, w)
+
+
+def _arena_rows(orders, seed):
+    """[12, sum(orders)] final params, the layers side by side: seeded rows
+    at three scales; NaN coefficients (a NaN product counts as 0); max |c|
+    exactly 2^-1 and 2^3 (a frexp bin edge: scale margin 0); max |c| at
+    the 2^-7 threshold and under it (the low path); all zero; exact .5
+    ties of the error feedback at rshift 7 and 12; the +-128 clamp."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for P in orders:
+        c = rng.normal(0, 0.4, (12, P)) * np.array(
+            [1.0, 1e-2, 30.0] + [1.0] * 9)[:, None]
+        c[3, ::3] = np.nan
+        c[4] = np.clip(c[4], -0.49, 0.49)
+        c[4, P // 2] = -0.5
+        c[5, 0] = 8.0
+        c[6] = 2.0 ** -7 * np.where(np.arange(P) % 2, -1, 1)
+        c[7] = rng.normal(0, 1e-4, P)
+        c[8] = 0.0
+        for row, shift in ((9, 7), (10, 12)):
+            step = 2.0 ** -shift
+            c[row] = (rng.integers(-64, 64, P)
+                      + 0.5 * rng.integers(0, 2, P)) * step
+            c[row, 0] = 96 * step
+        c[11] = np.where(np.arange(P) % 3, 127.49, -127.87) * 2.0 ** -7
+        parts.append(c)
+    return np.concatenate(parts, axis=1)
+
+
+@pytest.mark.parametrize("orders", [(4, 128, 16), (2, 32), (32,),
+                                    (1, 2, 3, 4)])
+def test_quantize_layers_plain_bit_equal_to_jax(orders):
+    """_quantize_layers_plain over an arena's layers (the grouped kernel's
+    plain version) bit for bit the JAX package's _quantize_layer a layer:
+    int coefficients, rshifts, and both margins after their minimum over
+    the layers, at NaN coefficients, max |c| at 2^k and at the 2^-7
+    threshold, the low path and .5 ties."""
+    arena = _arena_rows(orders, sum(orders))
+    got = [a.numpy() for a in T._quantize_layers_plain(
+        torch.from_numpy(arena), orders, CB)]
+    ics, rss = [], []
+    rm = sm = np.full(arena.shape[0], np.inf)
+    col = 0
+    for P in orders:
+        ic, rs, lrm, lsm = (np.asarray(a) for a in J._quantize_layer(
+            jnp.asarray(arena[:, col:col + P]), CB))
+        ics.append(ic)
+        rss.append(rs)
+        rm, sm = np.minimum(rm, lrm), np.minimum(sm, lsm)
+        col += P
+    want = [np.concatenate(ics, axis=1), np.stack(rss, axis=1), rm, sm]
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    ic, rs, rm, sm = got
+    assert (rs[6] == CB).all() and (rs[7] == CB).all() and not ic[6:9].any()
+    assert sm[5] == 0.0 and sm[6] == 0.0  # a bin edge; the threshold
+    assert np.isinf(rm[6:9]).all()  # the low path
+    if max(orders) >= 16:  # enough taps for the feedback to meet a tie
+        assert rm[9] == 0.0 and rm[10] == 0.0
 
 
 # -- the host (numpy) helpers -----------------------------------------------
