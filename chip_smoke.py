@@ -113,6 +113,20 @@ Phases (any failure raises and the script exits non-zero):
      the fit stages of one batch on the matrix-unit and on the lag/FFT
      routes (span, device time, torch ops), the plain -e corpus encode in 5
      alternating pairs of the two, and the card's default route.
+ 15. the two throughput entry points: the corpus tool (python -m
+     linne_tpu_torch.tools.encode_corpus -m 7) in a subprocess on a WAV
+     corpus of three format groups (phase 4's tracks; two mono 24-bit
+     48 kHz tracks; a stereo 16-bit 48 kHz track with a partial tail), once
+     on cuda and once over --devices cuda:0,cuda:0: every file lossless
+     under the host Decoder, both runs byte-equal and equal to an
+     in-process TorchEncoder(batch_blocks=128).encode_many of each group,
+     whose analysis_scans launches must be nonzero; then python -m
+     linne_tpu_torch.bench --reps 3 in a subprocess: every row present and
+     finite, the byte-exact rows identical to the host oracle with 0 rows
+     flagged at preset 0, the kernels of each path launched; its rows
+     are printed; then every row the byte-exact guard flags on the
+     bench's preset-7 corpus, each held to the CPU fit's margins bit for
+     bit, its track's stream to the host oracle's.
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
@@ -133,6 +147,7 @@ import numpy as np
 import torch
 
 from chip_pairs import make_track
+from linne_tpu_torch import bench
 from linne_tpu_torch import native
 from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec import encoder as E
@@ -142,6 +157,7 @@ from linne_tpu_torch.codec.params import EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.constants import (
     CH_PROCESS_MS,
+    CH_PROCESS_NONE,
     HEADER_SIZE,
     LPC_COEF_BITWIDTH,
     TRAINING_LEARNING_RATE,
@@ -151,7 +167,7 @@ from linne_tpu_torch.exact import device_encoder as DE
 from linne_tpu_torch.exact.encoder import ExactEncoder
 from linne_tpu_torch.exact.parallel_encoder import ParallelExactEncoder
 from linne_tpu_torch.format.block import parse_block_header
-from linne_tpu_torch.io.wav import write_wav
+from linne_tpu_torch.io.wav import read_wav, write_wav
 from linne_tpu_torch.ops import _kernels
 from linne_tpu_torch.ops import afmethod
 from linne_tpu_torch.ops import analysis as A
@@ -2332,6 +2348,230 @@ def routes_phase(tracks) -> None:
           f"{names[default]}")
 
 
+def corpus_tool_phase(tracks, tmp: pathlib.Path) -> None:
+    """The corpus encode tool (linne_tpu_torch.tools.encode_corpus -m 7) on
+    a WAV corpus of three format groups, in a subprocess on the card and
+    over ["cuda:0", "cuda:0"]: every file lossless under the host Decoder,
+    both runs byte-equal, and equal to an in-process
+    TorchEncoder(batch_blocks=128).encode_many of each group, whose
+    analysis_scans launches are counted from 0."""
+    wav_dir = tmp / "corpus"
+    wav_dir.mkdir()
+    for i, t in enumerate(tracks):  # phase 4's: stereo 16-bit 44.1 kHz
+        write_wav(str(wav_dir / f"stereo44_{i}.wav"), t, RATE, 16)
+    for i, seconds in enumerate((20.0, 12.5)):  # mono 24-bit 48 kHz
+        mono = make_track(seconds, 20 + i)[:1] * 256
+        write_wav(str(wav_dir / f"mono24_{i}.wav"), mono, 48000, 24)
+    # 661,500 samples: 64 blocks and a 6,940-sample tail
+    write_wav(str(wav_dir / "stereo48_tail.wav"), make_track(15.0, 30),
+              48000, 16)
+    groups = {}  # (channels, bps, rate) -> [(file name, samples)]
+    for wav in sorted(wav_dir.glob("*.wav")):
+        fmt, samples = read_wav(str(wav))
+        groups.setdefault(
+            (fmt.num_channels, fmt.bits_per_sample, fmt.sampling_rate),
+            []).append((wav.stem + ".lnn", samples))
+    require(len(groups) == 3, f"{len(groups)} format groups, not 3")
+
+    def tool(out: pathlib.Path, *extra) -> dict:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "linne_tpu_torch.tools.encode_corpus",
+             str(wav_dir), str(out), "-m", "7", *extra], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0, f"encode_corpus {extra} exited "
+                f"{proc.returncode}: {proc.stderr[-3000:]}")
+        print(f"corpus tool {' '.join(extra) or '(--device cuda)'}: "
+              f"{proc.stdout.strip()}; {time.perf_counter() - t0:.1f} s "
+              "with the process's start")
+        return {p.name: p.read_bytes() for p in out.glob("*.lnn")}
+
+    one = tool(tmp / "one")
+    split = tool(tmp / "split", "--devices", "cuda:0,cuda:0")
+
+    for k in AS.KERNELS:
+        AS.KERNEL_LAUNCHES[k] = 0
+    want = {}
+    for (nch, bps, rate), members in groups.items():
+        enc = TorchEncoder(batch_blocks=128, device="cuda")
+        enc.set_encode_parameter(EncodeParameter(
+            num_channels=nch, bits_per_sample=bps, sampling_rate=rate,
+            preset=7, ch_process_method=(CH_PROCESS_MS if nch >= 2
+                                         else CH_PROCESS_NONE)))
+        datas = enc.encode_many([list(s) for _, s in members],
+                                [s.shape[1] for _, s in members])
+        want.update((name, d) for (name, _), d in zip(members, datas))
+    torch.cuda.synchronize()
+    launches = {k: AS.KERNEL_LAUNCHES[k] for k in MAIN_SCANS}
+    for k, v in launches.items():
+        require(v > 0, f"the corpus groups' encode did not launch {k}")
+    require(sorted(one) == sorted(want),
+            f"the tool wrote {sorted(one)}, not {sorted(want)}")
+    require(split == one, "the tool's --devices cuda:0,cuda:0 files differ "
+                          "from its one-device files")
+    require(one == want, "the tool's files differ from TorchEncoder("
+                         "batch_blocks=128).encode_many of each group")
+    for members in groups.values():
+        for name, samples in members:
+            require(lossless(samples, Decoder().decode_whole(one[name])),
+                    f"corpus tool file {name} is not lossless")
+    print(f"corpus tool: {len(one)} files in {len(groups)} format groups "
+          f"({', '.join(f'{k}: {len(m)}' for k, m in groups.items())}), "
+          "lossless under the host Decoder, the device list's bytes and "
+          "encode_many's; in-process analysis_scans launches "
+          f"{launches}")
+
+
+# the bench's rows (linne_tpu_torch/bench.py), each with _cuda; RATE_ROWS
+# also come as _min and _max
+BENCH_RATE_ROWS = (
+    "mode7_encode_realtime_x", "encode_msamples_s",
+    "decode_mode0_realtime_x", "decode_mode7_realtime_x",
+    "decode_mode7_msamples_s", "corpus_encode_realtime_x",
+    "mode7_a2_encode_realtime_x", "mode7_l_encode_realtime_x",
+    "corpus_decode_realtime_x", "corpus_decode_msamples_s",
+    "decode_launch_floor_ms", "decode_pooled_rows_64_msamples_s",
+    "decode_pooled_rows_256_msamples_s", "decode_pooled_rows_1024_msamples_s",
+    "decode_underload_native_msamples_s",
+    "decode_underload_device_msamples_s",
+    "exact_host_encode_mode0_realtime_x",
+    "exact_device_encode_mode0_realtime_x", "exact_device_corpus_realtime_x",
+    "exact_host_encode_mode7_realtime_x_short",
+    "exact_device_encode_mode7_realtime_x",
+    "exact_device_corpus_mode7_realtime_x")
+BENCH_ROWS = (
+    "decode_mode0_vs_c_ref_hw", "decode_mode7_vs_c_ref_hw",
+    "corpus_encode_bytes", "mode7_a2_encode_bytes", "mode7_l_encode_bytes",
+    "exact_device_guard_total", "exact_device_mode7_guard_total",
+    # rows near a decision boundary in the data; guard_phase holds each
+    # of the card's flags to the CPU's
+    "exact_device_mode7_guard_flagged",
+    *(f"exact_device_mode{p}_{k}_s" for p in (0, 7)
+      for k in ("framing", "fit_enqueue", "row_wait", "split_wall")))
+BENCH_TRUE = ("exact_device_byte_identical",
+              "exact_device_mode7_byte_identical")
+BENCH_ZERO = ("exact_device_guard_flagged",)
+# kernels each row must have launched
+BENCH_LAUNCHES = {
+    "mode7_encode_realtime_x": MAIN_SCANS,
+    "corpus_encode_realtime_x": MAIN_SCANS,
+    "corpus_decode_realtime_x": ("synthesize_rows",),
+    "decode_pooled_rows_1024_msamples_s": ("synthesize_rows",),
+    "decode_underload_device_msamples_s": ("synthesize_rows",),
+    "exact_device_corpus_mode7_realtime_x": ES.KERNELS + ("quantize_layer",),
+    "exact_device_corpus_realtime_x": ES.KERNELS + ("quantize_layer",),
+}
+BENCH_TIMEOUT = 420
+
+
+def bench_phase() -> None:
+    """python -m linne_tpu_torch.bench --reps 3 in a subprocess: every row
+    present and finite, the byte-exact rows identical to the host oracle
+    with no row flagged, and the kernels of each path launched."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "linne_tpu_torch.bench", "--reps", "3"],
+        cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("# "):
+            print(f"bench {line[2:]}")
+    require(proc.returncode == 0, f"the bench exited {proc.returncode}: "
+                                  f"{proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    sfx = "_cuda"
+    for row in BENCH_RATE_ROWS:
+        lo, mid, hi = (result.get(f"{row}{sfx}{m}")
+                       for m in ("_min", "", "_max"))
+        require(all(isinstance(v, (int, float)) and np.isfinite(v)
+                    and v > 0 for v in (lo, mid, hi)),
+                f"bench row {row}: {lo}, {mid}, {hi}")
+        print(f"bench {row}{sfx}: median {mid!r} (min {lo!r}, max {hi!r})")
+    for row in BENCH_ROWS + BENCH_ZERO:
+        value = result.get(row + sfx)
+        require(isinstance(value, (int, float)) and np.isfinite(value),
+                f"bench row {row}: {value}")
+        print(f"bench {row}{sfx}: {value!r}")
+    for row in BENCH_TRUE:
+        require(result.get(row + sfx) is True, f"bench row {row} is not true")
+        print(f"bench {row}{sfx}: True")
+    for row in BENCH_ZERO:
+        require(result[row + sfx] == 0, f"bench row {row} is not 0")
+    for row, kernels in BENCH_LAUNCHES.items():
+        counts = result["launches"].get(row + sfx, {})
+        for k in kernels:
+            require(counts.get(k, 0) > 0, f"bench row {row} did not launch "
+                                          f"{k}: {counts}")
+    require(result["metric"] == "mode7_encode_realtime_x" + sfx
+            and result["value"] == result["mode7_encode_realtime_x" + sfx],
+            "the bench's headline is not its mode7_encode row")
+    print(f"bench: {len(BENCH_RATE_ROWS)} timed rows (3 reps each after a "
+          f"warm run, every rep's output hashed against the warm run's) and "
+          f"{len(BENCH_ROWS + BENCH_TRUE + BENCH_ZERO)} more in {wall:.1f} s; "
+          f"headline {result['value']!r}x realtime on {result['card']}")
+
+
+def guard_phase() -> None:
+    """The rows the byte-exact guard flags on the bench's preset-7 corpus
+    (96 x 4-block tracks of bench.make_signal): a flag sends a row whose
+    decision margin is under the guard's bound to the host oracle. Each
+    row flagged on the card must have the CPU fit's margins bit for bit,
+    so that the flag comes from the data, not from the card's arithmetic;
+    the streams must be the host oracle's."""
+    tlen, ntracks = 4 * SPB, 96
+    sig = bench.make_signal(tlen * ntracks)
+    tracks = [[sig[0, i * tlen:(i + 1) * tlen], sig[1, i * tlen:(i + 1) * tlen]]
+              for i in range(ntracks)]
+    p = param()
+    enc = DE.DeviceExactEncoder(device="cuda")
+    enc.set_encode_parameter(p)
+    last, flagged = [None], []
+    real_fetch, real_flag = enc._overlapped_fit, enc._row_flagged
+
+    def fetch(*args):
+        get_row = real_fetch(*args)
+
+        def row_of(r):
+            last[0] = r
+            return get_row(r)
+        return row_of
+
+    def flag(row):
+        hit = real_flag(row)
+        if hit:
+            flagged.append((last[0], np.asarray(row["margins"], np.float64)))
+        return hit
+
+    enc._overlapped_fit, enc._row_flagged = fetch, flag
+    datas = enc.encode_many(tracks, [tlen] * ntracks)
+    require(len(flagged) == enc.guard_rows_flagged,
+            f"{len(flagged)} flags seen, {enc.guard_rows_flagged} counted")
+    preset = PRESETS[PRESET]
+    fit = ED.build_fit_fn(preset.layer_num_params, preset.ridge_terms, SPB,
+                          16, LPC_COEF_BITWIDTH)
+    for r, margins in flagged:
+        (ti, bi), ch = divmod(r // 2, 4), r % 2
+        plane = DE.preemph_plane(
+            p, [c[bi * SPB:(bi + 1) * SPB] for c in tracks[ti]], SPB)
+        cpu = fit(torch.from_numpy(plane[ch:ch + 1]))["margins"][0].numpy()
+        require(np.array_equal(cpu.view(np.int64), margins.view(np.int64)),
+                f"flagged row {r}: card margins {margins.tolist()}, CPU "
+                f"{cpu.tolist()}")
+        print(f"guard: row {r} (track {ti}, block {bi}, channel {ch}) "
+              f"flagged, margins {margins.tolist()} (bounds "
+              f"{DE._MARGIN_REL}, {DE._MARGIN_REL}, {DE._MARGIN_ABS}), the "
+              "CPU fit's bit for bit")
+    for ti in sorted({r // 2 // 4 for r, _ in flagged}):
+        oracle = ExactEncoder()
+        oracle.set_encode_parameter(p)
+        require(datas[ti] == oracle.encode_whole(tracks[ti], tlen),
+                f"track {ti} of the guard corpus differs from the host "
+                "oracle's")
+    print(f"guard: {len(flagged)} of {enc.guard_rows_total} rows of the "
+          "bench's preset-7 corpus flagged, each as on the CPU; the streams "
+          "of their tracks the host oracle's")
+
+
 def ptxas_report(name: str) -> str:
     """nvcc -Xptxas -v's registers, shared memory and spills for each
     kernel of csrc/<name>.cu (a throwaway build beside the real one)."""
@@ -2419,6 +2659,10 @@ def main() -> int:
     copy_phase(tracks)
     forced_overflow_phase(tracks, datas)
     routes_phase(tracks)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_tool_phase(tracks, pathlib.Path(tmp))
+    bench_phase()
+    guard_phase()
 
     replaces = {"autocorr_serial": 148, "levinson_serial": 203,
                 "serial_abs_mean": 378, "chain_predict": 349}
