@@ -127,12 +127,26 @@ Phases (any failure raises and the script exits non-zero):
      are printed; then every row the byte-exact guard flags on the
      bench's preset-7 corpus, each held to the CPU fit's margins bit for
      bit, its track's stream to the host oracle's.
+ 16. hostile streams: the port's encoder on the card makes stereo 16-bit
+     streams at presets 0, 2 and 7 and a mono 24-bit one at preset 7
+     (block 2560, two blocks and a tail); 400 seeded mutations of each
+     (1-5 bytes at offset 30 or later), its truncations every 97 bytes,
+     its corrupt num_samples header, and its first compress block
+     rewritten with more units than taps and with rshift 0 in one channel
+     (tests/torch_hostile_streams.py) go through TorchDecoder on the card
+     and the host Decoder with CRC checking off, a synchronize after each:
+     both raise FormatError or both give the same samples; every
+     synthesize_rows launch of the sweep is bit-equal to its plain version
+     on the card; launches, rows flagged past the download width and
+     decodes with samples are all nonzero; phase 4's streams then decode
+     to phase 4's samples.
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
@@ -153,7 +167,7 @@ from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec import encoder as E
 from linne_tpu_torch.codec import torch_decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
-from linne_tpu_torch.codec.params import EncodeParameter
+from linne_tpu_torch.codec.params import DecoderConfig, EncodeParameter
 from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.constants import (
     CH_PROCESS_MS,
@@ -167,6 +181,7 @@ from linne_tpu_torch.exact import device_encoder as DE
 from linne_tpu_torch.exact.encoder import ExactEncoder
 from linne_tpu_torch.exact.parallel_encoder import ParallelExactEncoder
 from linne_tpu_torch.format.block import parse_block_header
+from linne_tpu_torch.format.header import FormatError
 from linne_tpu_torch.io.wav import read_wav, write_wav
 from linne_tpu_torch.ops import _kernels
 from linne_tpu_torch.ops import afmethod
@@ -2572,6 +2587,142 @@ def guard_phase() -> None:
           "of their tracks the host oracle's")
 
 
+HOSTILE_SPB = 2560
+HOSTILE_LEN = 2 * HOSTILE_SPB + 777  # two full blocks and a tail
+HOSTILE_MUTATIONS = 400
+
+
+def hostile_streams() -> list:
+    """(name, stream) of the port's encoder on the card: stereo 16-bit at
+    presets 0, 2 and 7, and a mono 24-bit track at preset 7, each two
+    2560-sample blocks and a tail."""
+    out = []
+    for preset in (0, 2, 7):
+        sig = make_track(1.0, 100 + preset)[:, :HOSTILE_LEN]
+        enc = TorchEncoder(device="cuda")
+        enc.set_encode_parameter(EncodeParameter(
+            num_channels=2, bits_per_sample=16, sampling_rate=RATE,
+            num_samples_per_block=HOSTILE_SPB, preset=preset,
+            ch_process_method=CH_PROCESS_MS))
+        out.append((f"stereo16-p{preset}",
+                    enc.encode_whole([sig[0], sig[1]], HOSTILE_LEN)))
+    mono = make_track(1.0, 107)[:1, :HOSTILE_LEN] * 256  # 24-bit range
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(EncodeParameter(
+        num_channels=1, bits_per_sample=24, sampling_rate=RATE,
+        num_samples_per_block=HOSTILE_SPB, preset=7,
+        ch_process_method=CH_PROCESS_NONE))
+    out.append(("mono24-p7", enc.encode_whole([mono[0]], HOSTILE_LEN)))
+    return out
+
+
+def hostile_phase(tracks, datas, card: str) -> int:
+    """Hostile streams through TorchDecoder on the card and the host
+    Decoder, CRC checking off: for each stream of hostile_streams, 400
+    seeded mutations (1-5 bytes at offset 30 or later), its truncations
+    every 97 bytes, its corrupt num_samples header, and its first compress
+    block rewritten with more units than taps and with rshift 0 in one
+    channel (tests/torch_hostile_streams.py). Both decoders must raise a
+    FormatError, or give the same samples. Every synthesize_rows launch of
+    the sweep is recorded and held bit for bit to synthesize_rows_ref on
+    the card; then phase 4's streams must decode to phase 4's samples.
+    Returns the max abs difference."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_hostile_streams", ROOT / "tests" / "torch_hostile_streams.py")
+    H = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(H)
+
+    t0 = time.perf_counter()
+    cfg = DecoderConfig(check_crc=False)
+    inputs = []
+    for seed, (name, data) in enumerate(hostile_streams()):
+        inputs += [(name, "mutation", m) for m in
+                   H.mutations(data, HOSTILE_MUTATIONS, seed)]
+        inputs += [(name, "truncation", t) for t in H.truncations(data)]
+        inputs += [(name, "num_samples", H.giant_num_samples(data)),
+                   (name, "units_above_order", H.units_above_order(data)),
+                   (name, "rshift_zero", H.rshift_zero(data))]
+    calls = []
+    real = torch_decoder.synthesize_rows
+
+    def recording(x, c, rs):
+        x = x.clone()  # the decoder writes the result over its input
+        y = real(x, c, rs)
+        calls.append((x, c.clone(), rs.clone(), y.clone()))
+        return y
+
+    samples = raised = flagged = 0
+    S.KERNEL_LAUNCHES = 0
+    torch_decoder.synthesize_rows = recording
+    try:
+        for i, (name, kind, data) in enumerate(inputs):
+            try:
+                want = Decoder(cfg).decode_whole(data)
+            except FormatError:
+                want = None
+            dec = TorchDecoder(cfg, device="cuda")
+            try:
+                got = dec.decode_whole(data)
+            except FormatError:
+                got = None
+            # an asynchronous kernel fault lands in its own input
+            torch.cuda.synchronize()
+            flagged += dec.flagged_rows
+            what = f"{name}, {kind} input {i}"
+            require((want is None) == (got is None),
+                    f"hostile {what}: the host Decoder "
+                    f"{'raised' if want is None else 'decoded'}, TorchDecoder "
+                    f"{'raised' if got is None else 'decoded'}")
+            if want is None:
+                raised += 1
+                continue
+            require(all(np.array_equal(w, g) for w, g in zip(want, got)),
+                    f"hostile {what}: TorchDecoder's samples differ from "
+                    "the host Decoder's")
+            samples += 1
+    finally:
+        torch_decoder.synthesize_rows = real
+    launches = S.KERNEL_LAUNCHES
+    require(launches == len(calls) > 0,
+            f"hostile streams: {launches} launches, {len(calls)} recorded")
+    require(flagged > 0, "hostile streams: no row past the download width")
+    require(samples > 0, "hostile streams: no input decoded to samples")
+
+    # each launch against the plain version, pooled by shape: the plain
+    # version's Python loop over time costs the same for one row or many
+    by_shape = {}
+    for x, c, rs, y in calls:
+        by_shape.setdefault((x.shape[1], c.shape[1]), []).append((x, c, rs, y))
+    max_err = 0
+    for (ns, npu), group in by_shape.items():
+        x, c, rs, y = (torch.cat(parts) for parts in zip(*group))
+        want = S.synthesize_rows_ref(x, c, rs)
+        max_err = max(max_err, int((y.long() - want.long()).abs().max()))
+        require(torch.equal(y, want),
+                f"hostile streams: a launch at (ns {ns}, npu {npu}) differs "
+                "from synthesize_rows_ref")
+    rs_all = torch.cat([rs for _x, _c, rs, _y in calls])
+    rows = int(rs_all.numel())
+
+    # the context survived: phase 4's streams decode to phase 4's samples
+    decoded = TorchDecoder(device="cuda").decode_many(datas)
+    torch.cuda.synchronize()
+    for sig, out in zip(tracks, decoded):
+        require(lossless(sig, out), "phase 4's streams no longer decode "
+                                    "losslessly after the hostile sweep")
+    print(f"hostile streams: {len(inputs)} inputs from 4 streams (stereo "
+          f"16-bit presets 0, 2, 7; mono 24-bit preset 7; block "
+          f"{HOSTILE_SPB}), CRC off: {samples} decoded to the host "
+          f"Decoder's samples, {raised} raised FormatError on both, "
+          f"synthesize_rows launches {launches} ({rows} rows, "
+          f"{int((rs_all == 0).sum())} at rshift 0, {len(by_shape)} "
+          f"(ns, npu) shapes) bit-equal to synthesize_rows_ref, rows "
+          f"flagged past the download width {flagged}; phase 4's streams "
+          f"lossless after the sweep; {time.perf_counter() - t0:.1f} s on "
+          f"{card}")
+    return max_err
+
+
 def ptxas_report(name: str) -> str:
     """nvcc -Xptxas -v's registers, shared memory and spills for each
     kernel of csrc/<name>.cu (a throwaway build beside the real one)."""
@@ -2663,6 +2814,7 @@ def main() -> int:
         corpus_tool_phase(tracks, pathlib.Path(tmp))
     bench_phase()
     guard_phase()
+    hostile_err = hostile_phase(tracks, datas, smi.stdout.strip())
 
     replaces = {"autocorr_serial": 148, "levinson_serial": 203,
                 "serial_abs_mean": 378, "chain_predict": 349}
@@ -2672,7 +2824,7 @@ def main() -> int:
         "source": "linne_tpu_torch/csrc/synthesis.cu",
         "replaces": "linne_tpu/ops/synthesis.py:46",
         "launches": launches,
-        "max_abs_err": max(kernel["max_abs_err"], group_err),
+        "max_abs_err": max(kernel["max_abs_err"], group_err, hostile_err),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],

@@ -36,7 +36,12 @@ from ..format.block import (
     read_compress_payload,
     read_raw_payload,
 )
-from ..format.header import FormatError, LinneHeader, check_stream_capacity
+from ..format.header import (
+    FormatError,
+    LinneHeader,
+    check_decoder_capacity,
+    check_stream_capacity,
+)
 from ..format.huffman import get_codebook
 from ..presets import PRESETS
 from .params import DecoderConfig
@@ -51,13 +56,8 @@ class Decoder:
 
     def set_header(self, header: LinneHeader) -> None:
         header.validate()
-        if header.num_channels > self.config.max_num_channels:
-            raise FormatError("decoder capacity exceeded: channels")
+        check_decoder_capacity(header, self.config)
         preset = PRESETS[header.preset]
-        if preset.num_layers > self.config.max_num_layers:
-            raise FormatError("decoder capacity exceeded: layers")
-        if preset.max_num_params > self.config.max_num_parameters_per_layer:
-            raise FormatError("decoder capacity exceeded: layer order")
         self.header = header
         self.preset = preset
         self.codebook = get_codebook(preset.coef_freq_table)

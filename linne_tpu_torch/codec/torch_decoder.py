@@ -49,7 +49,12 @@ from ..format.block import (
     parse_block_header,
     read_raw_payload,
 )
-from ..format.header import FormatError, LinneHeader, check_stream_capacity
+from ..format.header import (
+    FormatError,
+    LinneHeader,
+    check_decoder_capacity,
+    check_stream_capacity,
+)
 from ..format.huffman import get_codebook
 from ..presets import PRESETS
 
@@ -126,6 +131,7 @@ class TorchDecoder:
         """Entropy-decode every block of one stream on the host. Returns
         (header, orders, blocks) with blocks = [(start, n, kind, payload)]."""
         header = LinneHeader.unpack(data)
+        check_decoder_capacity(header, self.config)
         check_stream_capacity(header, len(data))
         preset = PRESETS[header.preset]
         cb = get_codebook(preset.coef_freq_table)
@@ -139,8 +145,18 @@ class TorchDecoder:
         while progress < header.num_samples and offset < len(data):
             bh = parse_block_header(
                 data[offset:], check_crc=self.config.check_crc)
-            payload = data[offset + BLOCK_HEADER_SIZE : offset + 6 + bh.block_size]
             n = bh.num_samples
+            # the block scan of the native decoder (linne_decode_stream):
+            # a frame shorter than its fixed fields, or a block that runs
+            # past the header's num_samples, is malformed; finish_rows
+            # would write such a block past the output planes
+            if bh.block_size < 5:
+                raise FormatError(f"block size {bh.block_size} is below 5")
+            if progress + n > header.num_samples:
+                raise FormatError(
+                    f"block of {n} samples at {progress} runs past the "
+                    f"header's {header.num_samples} samples")
+            payload = data[offset + BLOCK_HEADER_SIZE : offset + 6 + bh.block_size]
             if bh.block_type == BLOCK_TYPE_SILENT:
                 blocks.append((progress, n, "silent", None))
             elif bh.block_type == BLOCK_TYPE_RAW:
@@ -302,7 +318,14 @@ class TorchDecoder:
                         u = 1 << int(log2u[ch, li])
                         npu = order // u
                         ns = n // u
-                        if ns <= npu:
+                        # a row with no taps (more units than the layer's
+                        # order, which only a corrupt stream carries) or
+                        # no sample past its taps stays as it is, and so
+                        # does the tail past u * ns: the layer loop of
+                        # native/linne_host.cpp (synth_layers_multi) runs
+                        # npu = 0 through synth_unit_plain, which
+                        # subtracts half >> rshift = 0 at every step
+                        if npu == 0 or ns <= npu:
                             continue
                         g = groups.setdefault((u, ns, npu), ([], [], []))
                         g[0].append(pos * nch + ch)

@@ -21,6 +21,7 @@ from ..constants import (
     MAGIC,
     NUM_PARAMETER_PRESETS,
 )
+from ..presets import PRESETS
 
 _STRUCT = struct.Struct(">4sIIHIIHIBB")
 assert _STRUCT.size == HEADER_SIZE
@@ -120,3 +121,16 @@ def check_stream_capacity(header: LinneHeader, stream_bytes: int) -> None:
         raise FormatError(
             f"header claims {header.num_samples} samples but the "
             f"{body}-byte body can carry at most {max_possible}")
+
+
+def check_decoder_capacity(header: LinneHeader, config) -> None:
+    """Reject a header that needs more than the decoder's configured
+    capacity (codec/params.py:DecoderConfig): channels, layers of its
+    preset, or the order of a layer."""
+    if header.num_channels > config.max_num_channels:
+        raise FormatError("decoder capacity exceeded: channels")
+    preset = PRESETS[header.preset]
+    if preset.num_layers > config.max_num_layers:
+        raise FormatError("decoder capacity exceeded: layers")
+    if preset.max_num_params > config.max_num_parameters_per_layer:
+        raise FormatError("decoder capacity exceeded: layer order")

@@ -97,6 +97,157 @@ def test_strict_fit_bit_equal_to_jax(jax_fits, preset_idx):
                  jax_fits[preset_idx])
 
 
+@pytest.mark.parametrize("n", [2560, 10240])
+def test_abs_mean_divides_where_the_jitted_jax_graph_multiplies(n):
+    """The strict mean's last step, sum / n. The port divides, as the host
+    oracle does (linne_tpu/exact/network.py: _serial_sum(|x|) / n). XLA
+    rewrites the jitted JAX graph's division by the constant n into a
+    multiply by the rounded reciprocal 1/n (linne_tpu/ops/exact_device.py
+    :_serial_abs_mean, `acc / n`): at an n that is not a power of two, a
+    share of its means sit one ulp from the quotient. Eager JAX, as
+    test_serial_abs_mean_bit_equal_to_jax calls it, divides."""
+    from linne_tpu.exact.lpc import _serial_sum
+
+    rows = np.random.default_rng(n).normal(0, 0.3, (64, n))
+    acc = np.array([_serial_sum(np.abs(r[1:n])) for r in rows])
+    got = S.serial_abs_mean(torch.from_numpy(rows), 1, n).numpy()
+    assert _bits_equal(got, acc / n)
+    # the two roundings differ at this n, so the check below tells them
+    # apart
+    assert np.any(acc * (1.0 / n) != acc / n)
+    jitted = np.asarray(jax.jit(lambda r: J._serial_abs_mean(r, 1, n))(
+        jnp.asarray(rows)))
+    # the reciprocal multiply, or the quotient where an XLA build keeps
+    # the division
+    assert (_bits_equal(jitted, acc * (1.0 / n))
+            or _bits_equal(jitted, acc / n))
+
+
+def _preset7_flagged_row():
+    """The one row the byte-exact guard flags on the bench's preset-7
+    corpus (96 tracks of 4 blocks of bench.make_signal; chip_smoke.py's
+    guard phase): track 27, block 2, channel 1, after MS and
+    pre-emphasis."""
+    from linne_tpu_torch import bench
+    from linne_tpu_torch.exact.device_encoder import preemph_plane
+
+    spb, tlen = 10240, 4 * 10240
+    sig = bench.make_signal(96 * tlen)[:, 27 * tlen + 2 * spb:
+                                       27 * tlen + 3 * spb]
+    plane = preemph_plane(bench.stereo_param(44100, spb, 7),
+                          [sig[0], sig[1]], spb)
+    return np.ascontiguousarray(plane[1:2])
+
+
+def _preset7_fit_parts(row):
+    """The port's strict preset-7 fit of `row`, with every level argmin's
+    losses and gap, every layer's zc_margin and every level-loss mean's
+    serial sum recorded, in call order (terms x layers)."""
+    from linne_tpu.exact.lpc import _serial_sum
+
+    p = PRESETS[7]
+    rec = {"losses": [], "gap": [], "zc": [], "acc": []}
+    real_min, real_fits, real_mean = (T._first_strict_min,
+                                      T._layer_level_fits,
+                                      T._serial_abs_mean)
+
+    def first_strict_min(losses):
+        best, gap = real_min(losses)
+        rec["losses"].append(losses.numpy().copy())
+        rec["gap"].append(gap.numpy().copy())
+        return best, gap
+
+    def layer_level_fits(*args, **kw):
+        out = real_fits(*args, **kw)
+        rec["zc"].append(out[6].numpy().copy())
+        return out
+
+    def serial_abs_mean(rows, start, n, strict=True):
+        if rows.dim() == 3:  # the level losses [B, L, n]
+            a = rows.numpy()
+            rec["acc"].append(np.array(
+                [[_serial_sum(np.abs(a[b, li, start:n]))
+                  for li in range(a.shape[1])] for b in range(a.shape[0])]))
+        return real_mean(rows, start, n, strict)
+
+    T._first_strict_min = first_strict_min
+    T._layer_level_fits = layer_level_fits
+    T._serial_abs_mean = serial_abs_mean
+    try:
+        fit = T.build_fit_fn(p.layer_num_params, p.ridge_terms, 10240, BPS,
+                             CB, strict=True)
+        out = _np(fit(torch.from_numpy(row)))
+    finally:
+        T._first_strict_min = real_min
+        T._layer_level_fits = real_fits
+        T._serial_abs_mean = real_mean
+    return out, rec
+
+
+def _jit_first_strict_min(losses):
+    return jax.jit(J._first_strict_min)(jnp.asarray(losses))
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+def test_preset7_selection_margin_is_a_level_gap_of_ieee_means():
+    """margins[:, 0] of the preset-7 row the guard flags is the level
+    argmin gap of layer 3 (order 16) at ridge term 0, not a zc_margin or
+    the ridge-term gap. The gap formula rounds alike on both sides (the
+    jitted JAX _first_strict_min gives the port's gaps bit for bit on the
+    port's losses); the losses are the port's IEEE means, sum / n. With
+    the JAX graph's reciprocal multiply the same sums give losses that
+    differ in their last bit and a gap that differs in its last ~14 bits
+    (the runner-up is 3.6e-5 from the winner, so the subtraction cancels
+    most of the bits). That is the divergence in margins[:, 0] against
+    the JAX package's preset-7 strict graph: the JAX side's rounding, not
+    the port's."""
+    row = _preset7_flagged_row()
+    out, rec = _preset7_fit_parts(row)
+    n = 10240
+    # one fit pass over the 4 ridge terms' rows (row t is term t), three
+    # layers
+    assert len(rec["gap"]) == len(rec["zc"]) == len(rec["acc"]) == 3
+    margin = out["margins"][0, 0]
+    gaps = np.stack(rec["gap"])  # [L, T]
+    zcs = np.stack(rec["zc"])
+    assert np.min(zcs) > margin
+    assert margin == gaps.min()
+    assert np.argwhere(gaps == margin).tolist() == [[2, 0]]
+    for losses, gap, acc in zip(rec["losses"], rec["gap"], rec["acc"]):
+        assert _bits_equal(losses, acc / n)
+        _best, jgap = _jit_first_strict_min(losses)
+        assert _bits_equal(np.asarray(jgap), gap)
+    recip = [_jit_first_strict_min(acc * (1.0 / n))[1]
+             for acc in rec["acc"]]
+    recip_margin = np.min(np.stack([np.asarray(g) for g in recip]))
+    assert recip_margin != margin
+    assert abs(recip_margin - margin) < 1e-11 * margin
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+def test_preset7_flagged_row_against_the_jax_strict_graph():
+    """The JAX package's preset-7 strict graph (~20 s of XLA compile on
+    the CPU) on the flagged row: every output bit-equal to the port's but
+    margins[:, 0], which is the level gap the JAX graph's reciprocal
+    multiply gives (see the test above), or the port's where an XLA build
+    keeps the division."""
+    row = _preset7_flagged_row()
+    out, rec = _preset7_fit_parts(row)
+    p = PRESETS[7]
+    want = _np(J.build_fit_fn(p.layer_num_params, p.ridge_terms, 10240,
+                              BPS, CB, strict=True)(jnp.asarray(row)))
+    for k in want:
+        if k != "margins":
+            assert _bits_equal(out[k], want[k]), k
+    assert _bits_equal(out["margins"][:, 1:], want["margins"][:, 1:])
+    # the JAX graph's margins[:, 0] is the gap of the reciprocal-multiplied
+    # means, or the port's where an XLA build keeps the division
+    recip = min(np.asarray(_jit_first_strict_min(acc * (1.0 / 10240))[1]
+                           ).min() for acc in rec["acc"])
+    assert (_bits_equal(want["margins"][:, 0], np.array([recip]))
+            or _bits_equal(want["margins"][:, 0], out["margins"][:, 0]))
+
+
 def test_strict_is_the_default(monkeypatch):
     monkeypatch.delenv("LINNE_EXACT_DEVICE_STRICT", raising=False)
     assert T._resolve_strict(None) is True

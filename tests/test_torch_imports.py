@@ -80,7 +80,10 @@ def test_convert_roundtrip():
 
 
 def _port_sources():
-    return sorted(_PORT.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+    # chip_smoke.py imports tests/torch_hostile_streams.py on the card
+    return sorted(_PORT.rglob("*.py")) + [
+        REPO_ROOT / "chip_smoke.py",
+        REPO_ROOT / "tests" / "torch_hostile_streams.py"]
 
 
 def _imported_names(tree):
@@ -96,8 +99,9 @@ def _imported_names(tree):
 
 
 def test_port_sources_import_nothing_of_linne_tpu():
-    """No file of the port, and not chip_smoke.py, imports `linne_tpu` or
-    jax in any form; `linne_tpu_torch` is allowed."""
+    """No file of the port, and not chip_smoke.py or the test helper it
+    imports, imports `linne_tpu` or jax in any form; `linne_tpu_torch` is
+    allowed."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
