@@ -38,8 +38,14 @@ Phases (any failure raises and the script exits non-zero):
      at preset 7, then TorchDecoder.decode_many, both on the card; every
      stream must decode losslessly (also under the host Decoder), the
      encode must have launched each of its analysis_scans kernels (the
-     quantizer once a batch, every layer in one launch) and the decode the
-     synthesis kernel; the W of each batch, the overflow rows and the
+     quantizer once a batch, every layer in one launch, counted per graph
+     replay: each batch runs two graphs, eagerly at a shape's first
+     batches)
+     and the decode the synthesis kernel; the same encode and decode again
+     on fresh objects under torch.profiler, where each kernel's launches
+     counted by name in the trace must equal the wrappers' counts (the
+     `kernels` line prints the traced counts); the W of each batch, the
+     overflow rows and the
      bytes each transfer moved; then every analysis_scans call of one
      64-block batch, checked against its plain version and timed beside
      its bound and chain bound; the torch ops that batch dispatches per
@@ -140,12 +146,40 @@ Phases (any failure raises and the script exits non-zero):
      on the card; launches, rows flagged past the download width and
      decodes with samples are all nonzero; phase 4's streams then decode
      to phase 4's samples.
+ 17. graphs: the batched encode runs its stages as CUDA graphs (G1:
+     pre_stage, the fit stages and select_stage; G2: finish_stage at a
+     W; a shape's first G.CAPTURE_AT - 1 batches eagerly, the next
+     captured, later ones replayed), as every phase above did; here each
+     is held to the eager
+     card
+     encode (the graph lookup patched out inside this script), byte for
+     byte and lossless under the host Decoder, with graphs replayed:
+     phase 4's corpus (also equal to phase 4's streams), at
+     batch_blocks=128 (the corpus twice: four batches a run), under a forced
+     6-bit residual class (every live block fetches its residual after
+     later batches were dispatched), with -a 2 and with -l (graphs around
+     the eager middle) and over ["cuda:0", "cuda:0"]; each with its
+     graphs, eager runs, captures, capture seconds, replays and pool
+     bytes, and the encode's seconds on both fresh encoders (the cold
+     encode a CLI call makes), and the memory reserved before and after
+     the corpus's captures; then one
+     64-block batch on a warm encoder, with graphs and eagerly: the torch
+     ops Python dispatches for it, the stages' profiled wall against
+     device time and a CUDA-event span; then the plain -e corpus encode on
+     a warm graph encoder against a warm eager one in GRAPH_PAIRS
+     alternating pairs (median, IQR, pairs won), and each under the
+     profiler (wall against device time); then -a 2 on the corpus and -l
+     on its first track, warm, in GRAPH_REFINE_PAIRS pairs each; then
+     cold encodes of n batches of one shape, graphs against eager, at 64
+     and 128 rows (graph_crossover_phase: what a capture costs and a
+     replay saves, which G.CAPTURE_AT is chosen from).
 The second-to-last line is the kernel report (JSON), the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import os
@@ -165,6 +199,7 @@ from linne_tpu_torch import bench
 from linne_tpu_torch import native
 from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec import encoder as E
+from linne_tpu_torch.codec import graphs as G
 from linne_tpu_torch.codec import torch_decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
 from linne_tpu_torch.codec.params import DecoderConfig, EncodeParameter
@@ -348,10 +383,10 @@ def main_path_phase(tracks):
     enc = TorchEncoder(device="cuda")
     enc.set_encode_parameter(param())
     dec = TorchDecoder(device="cuda")
-    real_quantize, batches = A.quantize_layers, []
+    real_quantize, layers = A.quantize_layers, []
 
-    def quantize_layers(coefs, nbits):  # counts the batches' finish stages
-        batches.append(len(coefs))
+    def quantize_layers(coefs, nbits):  # the layers of each python call
+        layers.append(len(coefs))  # (under graphs: eager runs, captures)
         return real_quantize(coefs, nbits)
 
     S.KERNEL_LAUNCHES = 0
@@ -370,14 +405,19 @@ def main_path_phase(tracks):
     t2 = time.perf_counter()
     launches = S.KERNEL_LAUNCHES
     scan_launches = {k: AS.KERNEL_LAUNCHES[k] for k in MAIN_SCANS}
+    batches = enc.batch_widths  # one W a dispatched batch
+    graphs = enc._graphs[torch.device("cuda", 0)]
 
     require(launches > 0, "decode_many did not launch the synthesis kernel")
     for k, v in scan_launches.items():
         require(v > 0, f"encode_many did not launch the {k} kernel")
     require(scan_launches["quantize_coefficients"] == len(batches)
-            and set(batches) == {len(PRESETS[PRESET].layer_num_params)},
+            and set(layers) == {len(PRESETS[PRESET].layer_num_params)},
             f"the quantizer launched {scan_launches['quantize_coefficients']}"
             f" times for {len(batches)} batches: not once a batch")
+    require(graphs.eager_runs + graphs.replays == 2 * len(batches),
+            f"{graphs.eager_runs} eager runs and {graphs.replays} graph "
+            f"replays for {len(batches)} batches")
     for sig, data, out in zip(tracks, datas, decoded):
         require(lossless(sig, out), "TorchDecoder output is not lossless")
         require(lossless(sig, Decoder().decode_whole(data)),
@@ -391,9 +431,64 @@ def main_path_phase(tracks):
           f"size {100.0 * out_bytes / in_bytes:.3f} % of PCM, "
           f"kernel launches {launches}; encode launches of the "
           f"analysis_scans kernels {scan_launches} ({len(batches)} batches:"
-          f" the quantizer once a batch)")
+          f" the quantizer once a batch; counted per graph replay: "
+          f"{graphs.eager_runs} eager stage runs (a shape's first ones), "
+          f"{graphs.replays} replays of {graphs.graphs} graphs, whose "
+          f"{graphs.captures} captures took {graphs.capture_seconds:.3f} s of"
+          f" the encode)")
     transfer_report(enc, dec, datas)
-    return launches, scan_launches, datas, seconds / (t1 - t0)
+    traced = traced_launches(tracks)
+    counted = dict(scan_launches, synthesize_rows=launches)
+    require(traced == counted,
+            f"the kernels in a trace of the main path {traced} differ from "
+            f"the wrappers' counts {counted}")
+    print(f"main path traced again (fresh encoder and decoder, CUDA "
+          f"activity only): kernels launched, counted by name in the trace,"
+          f" {traced}: equal to the wrappers' counts of the timed run")
+    return (traced["synthesize_rows"],
+            {k: traced[k] for k in MAIN_SCANS}, datas, seconds / (t1 - t0))
+
+
+# the kernel function of each main-path wrapper, as a trace names it
+TRACE_KERNELS = {"levinson_durbin": "levinson_kernel",
+                 "quantize_coefficients": "quantize_kernel",
+                 "predict_dense": "predict_kernel",
+                 "synthesize_rows": "synth_rows_kernel"}
+
+
+def traced_launches(tracks) -> dict:
+    """Phase 4's encode and decode once more, on a fresh encoder and
+    decoder under torch.profiler (CUDA activity only): the launches of
+    each main-path kernel, counted by its name among the trace's kernels
+    (a kernel replayed in a CUDA graph is traced at each replay). Also
+    requires the wrappers' counts of this run to equal the trace's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    enc = TorchEncoder(device="cuda")
+    enc.set_encode_parameter(param())
+    dec = TorchDecoder(device="cuda")
+    S.KERNEL_LAUNCHES = 0
+    for k in AS.KERNELS:
+        AS.KERNEL_LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dec.decode_many(enc.encode_many([[t[0], t[1]] for t in tracks],
+                                        [t.shape[1] for t in tracks]))
+        torch.cuda.synchronize()
+    traced = dict.fromkeys(TRACE_KERNELS, 0)
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for name, fn in TRACE_KERNELS.items():
+            if re.search(rf"(?<!\w){fn}(?!\w)", ev.key):
+                traced[name] += ev.count
+    counted = {k: AS.KERNEL_LAUNCHES[k] for k in MAIN_SCANS}
+    counted["synthesize_rows"] = S.KERNEL_LAUNCHES
+    require(traced == counted,
+            f"traced main path: kernels in the trace {traced}, wrappers' "
+            f"counts {counted}")
+    return traced
 
 
 def compress_samples(datas) -> int:
@@ -1074,9 +1169,9 @@ def stage_ops(blocks) -> dict:
     stage = ["pre_stage"]
     real_fit, real_take = A.fit_layer, A.take_ridge
 
-    def fit_layer(x, order, rv):
+    def fit_layer(x, order, rv, *windows):
         stage[0] = f"fit_stage {order}"
-        return real_fit(x, order, rv)
+        return real_fit(x, order, rv, *windows)
 
     def take_ridge(t, best):
         stage[0] = "select/finish"
@@ -1143,12 +1238,17 @@ def scan_pairs_phase(tracks) -> None:
     seconds = sum(lengths) / RATE
     multiples = {False: [], True: []}
     first = {}
+    encs = {}
+    for plain in (False, True):  # each captures its graphs in a warm run
+        with PlainScans(plain):
+            encs[plain] = TorchEncoder(device="cuda")
+            encs[plain].set_encode_parameter(param())
+            encs[plain].encode_many(chans, lengths)
     for turn in range(5):
         for plain in ((False, True) if turn % 2 == 0 else (True, False)):
             with PlainScans(plain):
-                enc = TorchEncoder(device="cuda")
-                enc.set_encode_parameter(param())
-                got, secs = timed(lambda: enc.encode_many(chans, lengths))
+                got, secs = timed(
+                    lambda: encs[plain].encode_many(chans, lengths))
             multiples[plain].append(seconds / secs)
             if got != first.setdefault(plain, got) or turn == 0:
                 for sig, data in zip(tracks, got):
@@ -2033,6 +2133,7 @@ def learn_af_dispatch_phase() -> None:
     for flags, af, learn in (("-a 2", 2, False), ("-l", 0, True)):
         enc = TorchEncoder(device="cuda")
         enc.set_encode_parameter(param(af=af, learn=learn))
+        enc.encode_whole([sig[0], sig[1]], sig.shape[1])  # the captures
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2338,12 +2439,17 @@ def routes_phase(tracks) -> None:
                   f"{span_ms:.2f} ms, profiled wall {wall_ms:.1f} ms, device "
                   f"{dev_ms:.2f} ms in {dev_launches} launches, {ops} torch "
                   "ops")
+        encs = {}
+        for route in (True, False):  # each captures its graphs in a warm run
+            A._MATMUL_ROUTES_OVERRIDE = route
+            encs[route] = TorchEncoder(device="cuda")
+            encs[route].set_encode_parameter(param())
+            encs[route].encode_many(chans, lengths)
         for turn in range(5):
             for route in ((True, False) if turn % 2 == 0 else (False, True)):
                 A._MATMUL_ROUTES_OVERRIDE = route
-                enc = TorchEncoder(device="cuda")
-                enc.set_encode_parameter(param())
-                got, secs = timed(lambda: enc.encode_many(chans, lengths))
+                got, secs = timed(
+                    lambda: encs[route].encode_many(chans, lengths))
                 multiples[route].append(seconds / secs)
                 if route not in sizes:
                     sizes[route] = sum(len(d) for d in got)
@@ -2723,6 +2829,310 @@ def hostile_phase(tracks, datas, card: str) -> int:
     return max_err
 
 
+# -- the batched encode's stages as CUDA graphs ------------------------------
+
+
+GRAPH_PAIRS = 10  # alternating pairs of the graph and eager encodes
+GRAPH_REFINE_PAIRS = 3  # the same for -a 2 and -l, warm
+# cold encodes of n batches of one shape, graphs against eager
+CROSSOVER_BATCHES = (2, 3, 4, 6, 8, 12)
+CROSSOVER_PAIRS = 5
+
+
+class EagerStages:
+    """Within its `with`, TorchEncoder runs its stage chain eagerly on the
+    card too (its lookup of a device's graphs is swapped for one that
+    gives none), so that a run can be compared with the graphs'. There is
+    no switch in the package."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+        self._real = TorchEncoder._stage_graphs
+
+    def __enter__(self):
+        if self.on:
+            TorchEncoder._stage_graphs = lambda enc, device: None
+        return self
+
+    def __exit__(self, *exc):
+        TorchEncoder._stage_graphs = self._real
+
+
+def graph_report(enc) -> str:
+    """Each device's graphs of an encoder: the keys, eager runs, captures,
+    capture seconds, replays and the pool's bytes."""
+    out = []
+    for d, g in enc._graphs.items():
+        pool = g.pool_bytes()
+        keys = ", ".join("G1 " + "x".join(map(str, k[2:4])) if k[0] == "g1"
+                         else "G2 " + "x".join(map(str, k[2:4]))
+                         + f" W{k[5]}" for k in g.keys())
+        out.append(f"{d}: {g.graphs} graphs ({keys}), {g.eager_runs} eager "
+                   f"runs, {g.captures} "
+                   f"captures in {g.capture_seconds:.3f} s, {g.replays} "
+                   f"replays, pool "
+                   + ("not measured" if pool is None
+                      else f"{pool / 2**20:.1f} MiB"))
+    return "; ".join(out)
+
+
+def encoder_for(batch_blocks=64, devices=None, **kw) -> TorchEncoder:
+    enc = (TorchEncoder(batch_blocks=batch_blocks, devices=devices)
+           if devices else TorchEncoder(batch_blocks=batch_blocks,
+                                        device="cuda"))
+    enc.set_encode_parameter(param(**kw))
+    return enc
+
+
+def graphs_against_eager(what, tracks, want=None, batch_blocks=64,
+                         devices=None, runs=1, **kw):
+    """The corpus through a fresh graph encoder (`runs` times, so that a
+    corpus of fewer than G.CAPTURE_AT batches a shape replays graphs too)
+    and a fresh eager one on the card: byte-identical (and equal to `want`
+    when given), lossless under the host Decoder, with graphs replayed.
+    Returns (the graph encoder, its streams)."""
+    chans = [[t[0], t[1]] for t in tracks]
+    lengths = [t.shape[1] for t in tracks]
+    with EagerStages():
+        eager_enc = encoder_for(batch_blocks, devices, **kw)
+        eager, eager_s = timed(lambda: eager_enc.encode_many(chans, lengths))
+    enc = encoder_for(batch_blocks, devices, **kw)
+    got, secs = timed(lambda: enc.encode_many(chans, lengths))
+    for _ in range(runs - 1):
+        require(enc.encode_many(chans, lengths) == got,
+                f"graphs, {what}: a later run's streams differ")
+    require(all(g.replays > 0 for g in enc._graphs.values()),
+            f"graphs, {what}: no graph was replayed")
+    require(got == eager, f"graphs, {what}: the streams differ from the "
+                          "eager card encode's")
+    if want is not None:
+        require(got == want, f"graphs, {what}: the streams differ from "
+                             "phase 4's")
+    for sig, data in zip(tracks, got):
+        require(lossless(sig, Decoder().decode_whole(data)),
+                f"graphs, {what}: a stream is not lossless")
+    print(f"graphs, {what}: streams byte-identical to the eager card "
+          f"encode's, lossless; cold encode (a fresh encoder, as a CLI call "
+          f"makes) {secs:.3f} s with graphs, {eager_s:.3f} s eager; overflow "
+          f"rows "
+          f"{enc.overflow_rows} and {eager_enc.overflow_rows}; "
+          + graph_report(enc))
+    return enc, got
+
+
+def graph_batch_phase(tracks) -> None:
+    """One 64-block batch on a warm encoder, with graphs and eagerly: the
+    torch ops Python dispatches for it (counted as stage_ops counts), and
+    its stages' profiled wall against device time."""
+    blocks = np.stack([tracks[0][:, b * SPB:(b + 1) * SPB]
+                       for b in range(64)])
+    dev = torch.device("cuda", 0)
+    rows = torch.from_numpy(blocks.astype(np.int16)).pin_memory()
+    for eager in (False, True):
+        with EagerStages(eager):
+            enc = encoder_for()
+            # a W from the seen residual, then the graphs' captures
+            for _ in range(G.CAPTURE_AT + 2):
+                enc._drain_batch(*enc._dispatch_batch(blocks, SPB))
+            W = enc._pick_width(SPB)
+            g = enc._graphs.get(dev)
+            replays = g.replays if g else 0
+            ops = count_ops(enc._dispatch_batch, blocks, SPB)[0]
+            require(eager or g.replays == replays + 2,
+                    "graphs: the warm batch did not replay G1 and G2")
+            torch.cuda.synchronize()
+            top = []
+            wall_ms, dev_ms, launches = device_time(
+                enc._run_stages, rows, SPB, dev, W, top=top)
+            span_ms = cuda_ms(lambda: enc._run_stages(rows, SPB, dev, W),
+                              reps=5)
+        label = "eager" if eager else "graphs"
+        busy = (f"{100 * dev_ms / wall_ms:.1f} % busy" if dev_ms
+                else "no device time in the trace (not measured)")
+        print(f"graphs, one 64-block batch, {label}: {ops} torch ops "
+              f"dispatched by _dispatch_batch (views and allocations "
+              f"excluded); stages profiled wall {wall_ms:.2f} ms, device "
+              f"{dev_ms:.2f} ms in {launches} launches ({busy}); CUDA-event "
+              f"span {span_ms:.2f} ms a batch (mean of 5 back to back)"
+              + ("" if eager else "; " + graph_report(enc)))
+
+
+def graph_pairs_phase(tracks, want) -> None:
+    """The plain -e corpus encode on a warm graph encoder against a warm
+    eager one, 10 alternating pairs in one process."""
+    chans = [[t[0], t[1]] for t in tracks]
+    lengths = [t.shape[1] for t in tracks]
+    seconds = sum(lengths) / RATE
+    encs = {}
+    for eager in (False, True):
+        with EagerStages(eager):
+            encs[eager] = encoder_for()
+            for _ in range(2):  # every shape and W class the corpus takes
+                encs[eager].encode_many(chans, lengths)
+    g = encs[False]._graphs[torch.device("cuda", 0)]
+    captures = g.captures
+    multiples = {False: [], True: []}
+    won = 0
+    for turn in range(GRAPH_PAIRS):
+        secs = {}
+        for eager in ((False, True) if turn % 2 == 0 else (True, False)):
+            with EagerStages(eager):
+                got, secs[eager] = timed(
+                    lambda: encs[eager].encode_many(chans, lengths))
+            require(got == want, "graphs pairs: a stream differs from "
+                                 "phase 4's")
+            multiples[eager].append(seconds / secs[eager])
+        won += secs[False] < secs[True]
+    for eager in (False, True):
+        v = np.asarray(multiples[eager])
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        print(f"graphs pairs, plain -e corpus encode "
+              f"{'eager' if eager else 'with graphs'}: multiples "
+              f"{[round(float(m), 2) for m in v]}, median {med:.2f}x "
+              f"realtime, IQR {q1:.2f}-{q3:.2f}")
+    ratio = [a / b for a, b in zip(multiples[False], multiples[True])]
+    print(f"graphs pairs: graphs / eager median ratio "
+          f"{float(np.median(ratio)):.3f} (IQR "
+          f"{float(np.percentile(ratio, 25)):.3f}-"
+          f"{float(np.percentile(ratio, 75)):.3f}), graphs faster in {won} "
+          f"of {GRAPH_PAIRS} pairs; captures during the pairs "
+          f"{g.captures - captures}; every stream equal to phase 4's")
+    for eager in (False, True):
+        with EagerStages(eager):
+            wall_ms, dev_ms, launches = device_time(
+                encs[eager].encode_many, chans, lengths)
+        busy = (f"{100 * dev_ms / wall_ms:.1f} % busy" if dev_ms
+                else "no device time in the trace (not measured)")
+        print(f"graphs, plain -e corpus encode "
+              f"{'eager' if eager else 'with graphs'} under the profiler: "
+              f"wall {wall_ms:.1f} ms, device {dev_ms:.2f} ms in {launches} "
+              f"launches ({busy})")
+
+
+def graph_refine_pairs_phase(tracks) -> None:
+    """-a 2 on the corpus and -l on its first track, on warm graph and
+    eager encoders, GRAPH_REFINE_PAIRS alternating pairs each: the eager
+    middle is the same code either way, so only G1 and G2 differ."""
+    for flags, kw, subset in (("-a 2", {"af": 2}, tracks),
+                              ("-l", {"learn": True}, tracks[:1])):
+        chans = [[t[0], t[1]] for t in subset]
+        lengths = [t.shape[1] for t in subset]
+        seconds = sum(lengths) / RATE
+        encs, want = {}, None
+        for eager in (False, True):
+            with EagerStages(eager):
+                encs[eager] = encoder_for(**kw)
+                got = encs[eager].encode_many(chans, lengths)
+            require(want is None or got == want,
+                    f"graphs {flags}: warm streams differ from eager's")
+            want = got
+        multiples = {False: [], True: []}
+        won = 0
+        for turn in range(GRAPH_REFINE_PAIRS):
+            secs = {}
+            for eager in ((False, True) if turn % 2 == 0
+                          else (True, False)):
+                with EagerStages(eager):
+                    got, secs[eager] = timed(
+                        lambda: encs[eager].encode_many(chans, lengths))
+                require(got == want, f"graphs {flags}: a stream differs")
+                multiples[eager].append(seconds / secs[eager])
+            won += secs[False] < secs[True]
+        med = {k: float(np.median(v)) for k, v in multiples.items()}
+        print(f"graphs pairs, {flags} on {len(subset)} track(s), warm: "
+              f"with graphs {[round(m, 2) for m in multiples[False]]} "
+              f"(median {med[False]:.2f}x), eager "
+              f"{[round(m, 2) for m in multiples[True]]} (median "
+              f"{med[True]:.2f}x); graphs faster in {won} of "
+              f"{GRAPH_REFINE_PAIRS} pairs; streams equal")
+
+
+def graph_crossover_phase(tracks) -> None:
+    """Cold encodes (a fresh encoder each, as every CLI call and every
+    group of the corpus tool builds) of n batches of one shape at 64 and
+    128 rows, with graphs captured at a shape's second run against eager,
+    CROSSOVER_PAIRS alternating pairs for each n. The median difference
+    at n = 2 is what a capture costs beyond an eager run (it replays only
+    itself); its fall per added batch is what a replay saves. A key that
+    captures at run K loses at most (K - 1) savings when it stops right
+    after, and at most a capture's cost when it runs on: K = 1 + cost /
+    saving makes the two equal, which is what G.CAPTURE_AT is set from."""
+    sig = np.concatenate(tracks, axis=1)
+    for rows in (64, 128):
+        diffs = {}
+        for n in CROSSOVER_BATCHES:
+            need = n * rows * SPB
+            reps = -(-need // sig.shape[1])
+            track = np.concatenate([sig] * reps, axis=1)[:, :need]
+            secs = {False: [], True: []}
+            for turn in range(CROSSOVER_PAIRS):
+                for eager in ((False, True) if turn % 2 == 0
+                              else (True, False)):
+                    with EagerStages(eager):
+                        enc = encoder_for(batch_blocks=rows)
+                        gc.collect()
+                        captured = G.CAPTURE_AT
+                        G.CAPTURE_AT = 2
+                        try:
+                            _got, s = timed(lambda: enc.encode_many(
+                                [[track[0], track[1]]], [need]))
+                        finally:
+                            G.CAPTURE_AT = captured
+                        secs[eager].append(s)
+                        del enc
+            diffs[n] = float(np.median(np.subtract(secs[False],
+                                                   secs[True])))
+            print(f"graphs crossover, {rows} rows, {n} batches cold: "
+                  f"graphs (capture at run 2) "
+                  f"{[round(v, 4) for v in secs[False]]} s, eager "
+                  f"{[round(v, 4) for v in secs[True]]} s, median "
+                  f"difference {1e3 * diffs[n]:+.1f} ms")
+        ns = np.asarray(CROSSOVER_BATCHES, dtype=np.float64)
+        slope = float(np.polyfit(ns, [diffs[n] for n in CROSSOVER_BATCHES],
+                                 1)[0])
+        cost = diffs[CROSSOVER_BATCHES[0]]
+        saving = -slope
+        k = (1 + cost / saving) if saving > 0 else float("inf")
+        print(f"graphs crossover, {rows} rows: a capture costs "
+              f"{1e3 * cost:+.1f} ms beyond an eager run, a replay saves "
+              f"{1e3 * saving:.1f} ms (least squares over n), so K = 1 + "
+              f"cost / saving = {k:.2f} (G.CAPTURE_AT is {G.CAPTURE_AT})")
+
+
+def graph_phase(tracks, datas) -> None:
+    """17. The batched encode's stages as CUDA graphs against the eager card
+    encode (see the module docstring)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    enc, _ = graphs_against_eager("phase 4's corpus", tracks, datas)
+    torch.cuda.synchronize()
+    print(f"graphs, memory reserved before the corpus's captures "
+          f"{reserved / 2**20:.1f} MiB, after "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB (the eager "
+          "encode's cache included)")
+    del enc
+    # four 128-row batches a run: the second run captures and replays
+    graphs_against_eager("batch_blocks=128", tracks, datas, batch_blocks=128,
+                         runs=2)
+    classes = E._res_width_classes
+    E._res_width_classes = lambda bps: (6,)
+    try:
+        enc, _ = graphs_against_eager("forced 6-bit residual class", tracks,
+                                      datas)
+    finally:
+        E._res_width_classes = classes
+    require(enc.overflow_rows > 0, "graphs: no overflow row at W=6")
+    graphs_against_eager("-a 2", tracks, af=2)
+    graphs_against_eager("-l", tracks, learn=True)
+    graphs_against_eager('devices ["cuda:0", "cuda:0"]', tracks, datas,
+                         devices=["cuda:0", "cuda:0"])
+    graph_batch_phase(tracks)
+    graph_pairs_phase(tracks, datas)
+    graph_refine_pairs_phase(tracks)
+    graph_crossover_phase(tracks)
+
+
 def ptxas_report(name: str) -> str:
     """nvcc -Xptxas -v's registers, shared memory and spills for each
     kernel of csrc/<name>.cu (a throwaway build beside the real one)."""
@@ -2815,6 +3225,7 @@ def main() -> int:
     bench_phase()
     guard_phase()
     hostile_err = hostile_phase(tracks, datas, smi.stdout.strip())
+    graph_phase(tracks, datas)
 
     replaces = {"autocorr_serial": 148, "levinson_serial": 203,
                 "serial_abs_mean": 378, "chain_predict": 349}

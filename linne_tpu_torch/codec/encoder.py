@@ -7,7 +7,12 @@ transform, pre-emphasis; one unit x ridge sweep per layer; ridge selection;
 with `-a N` an IRLS refit of each layer under the winning ridge
 (ops/afmethod.py), with `-l` momentum training of the whole cascade
 (ops/training.py); quantization, integer predict cascade and Rice parameter
-search); the host then only packs bits with the native library.
+search); the host then only packs bits with the native library. On a
+CUDA device the chain runs as two CUDA graphs a shape (codec/graphs.py,
+the counterpart of the reference's jitted stages), eager at a shape's
+first batches, then captured and replayed: G1 (pre-processing, the layer
+sweeps, ridge selection) and G2 (quantization to the packed result), with
+`-a N` and `-l` run eagerly between them. The CPU runs the chain eagerly.
 
 Emitted streams are always losslessly decodable by the reference decoder
 (integer predict/Rice semantics are wire-exact, and the residual is
@@ -33,10 +38,11 @@ with its own copy, event and residual tensor.
 
 from __future__ import annotations
 
+import functools
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,6 +79,7 @@ from ..ops import rice_search as R
 from ..ops import training
 from ..ops.bitpack import pack_geometry, pack_plane_words
 from ..parallel.mesh import on_device, pad_rows, resolve_devices, shards
+from .graphs import StageGraphs
 
 _RAW_THRESHOLD = float(np.float32(0.95))
 
@@ -93,6 +100,29 @@ def _res_width_classes(bps: int) -> tuple:
 def _res_pack_width(bps: int) -> int:
     """Widest (startup/default) residual-plane class."""
     return _res_width_classes(bps)[0]
+
+
+class _G1Out(NamedTuple):
+    """G1's outputs for a [B, C] batch (pre_stage, the layer fits, ridge
+    selection): what G2 and the `-a`/`-l` stages read."""
+    raw_flag: torch.Tensor     # [B]
+    silent_flag: torch.Tensor  # [B]
+    pprev: torch.Tensor        # [B, C, pre-emphasis filters]
+    pcoef: torch.Tensor        # [B, C, pre-emphasis filters]
+    buf: torch.Tensor          # [B, C, width] int32, pre-emphasised
+    sig: torch.Tensor          # [B, C, num_analyze] float analysis input
+    log2u: tuple               # a layer's [B, C] int32 log2 unit counts
+    params: tuple              # a layer's [B, C, order] float coefficients
+    ridge_val: torch.Tensor    # [B, C] the winning ridge term
+
+
+class _StageChain(NamedTuple):
+    """The stage chain of one block length (TorchEncoder._stage_chain)."""
+    num_analyze: int
+    g1: Callable                # blocks -> _G1Out
+    middle: Optional[Callable]  # _G1Out -> refined params (-a, -l)
+    g2: Callable                # (_G1Out, params, W) -> (packed, residual)
+    analyze: Callable           # the eager chain: (blocks, W=None) -> dict
 
 
 class TorchEncoder:
@@ -131,6 +161,7 @@ class TorchEncoder:
         self.preset = None
         self.codebook = None
         self._analyze_cache = {}
+        self._graphs = {}  # CUDA device -> its StageGraphs
         self._maxw_seen = {}  # block length -> widest residual seen
         # transfer counters over the encoder's life: the W of every
         # dispatched batch, the int32 rows fetched past W, and the bytes
@@ -145,19 +176,34 @@ class TorchEncoder:
         self.preset = PRESETS[parameter.preset]
         self.codebook = get_codebook(self.preset.coef_freq_table)
         self._analyze_cache = {}
+        self._graphs = {}
         self._maxw_seen = {}
 
     # -- the per-batch stage chain -----------------------------------------
 
     def _analyze_fn(self, n: int):
-        """Build (and cache) the stage chain for block length n. Returns
-        (analyze, num_analyze); analyze(blocks, W=None) maps a [B, C, >=n]
+        """The stage chain for block length n, eagerly: (analyze,
+        num_analyze); analyze(blocks, W=None) maps a [B, C, >=n]
         int16/int32 device tensor to {"packed": [B, C, side_k + words]
         int32 (the side columns, then the residual plane at W bits),
         "residual": [B, C, n] int32}, W defaulting to the widest class."""
-        fn = self._analyze_cache.get(n)
-        if fn is not None:
-            return fn
+        chain = self._stage_chain(n)
+        return chain.analyze, chain.num_analyze
+
+    def _stage_chain(self, n: int) -> "_StageChain":
+        """Build (and cache) the stage chain for block length n, split at
+        the reference's stage boundaries into the two parts a CUDA device
+        replays as graphs (codec/graphs.py): G1 (pre_stage, every
+        fit_stage, select_stage) and G2 (finish_stage at a given W), with
+        the eager `-a`/`-l` stages between them. Every constant tensor a
+        stage reads is made once per device and kept by the chain, as long
+        as the chain and the graphs captured from it live: a capture
+        cannot copy host data to the device, and a graph reads the same
+        memory at every replay. The ridge tensors are made here, the
+        windows at the chain's first run (`windows`, ops/analysis.py)."""
+        chain = self._analyze_cache.get(n)
+        if chain is not None:
+            return chain
 
         p = self.parameter
         dtype = self.dtype
@@ -165,16 +211,29 @@ class TorchEncoder:
         num_analyze = min(p.num_samples_per_block,
                           max(self.preset.max_num_params, num_analyze))
         orders = self.preset.layer_num_params
+        L = len(orders)
         ridges = self.preset.ridge_terms
         nridge = len(ridges)
         unit_choices = [A.candidate_units(o, num_analyze) for o in orders]
         ms = p.ch_process_method == CH_PROCESS_MS
         bps = p.bits_per_sample
+        ridge_tensors = {}
+        windows = {}  # (type, taps, dtype, device) -> window
+
+        def ridge_vec(device):  # [nridge] on device, made once
+            rv = ridge_tensors.get(device)
+            if rv is None:
+                rv = torch.tensor(ridges, dtype=dtype, device=device)
+                ridge_tensors[device] = rv
+            return rv
+
+        for d in self.devices:
+            ridge_vec(d)
 
         def pre_stage(blocks):  # [B, C, max(n, num_analyze)]
             blocks = blocks.to(torch.int32)
             raw_sig = I.normalize_to_float(blocks[..., :n], bps, dtype)
-            est = A.estimate_code_length(raw_sig, orders[0], bps)
+            est = A.estimate_code_length(raw_sig, orders[0], bps, windows)
             mean_est = torch.sum(est, dim=-1) / est.shape[-1] / bps
             raw_flag = mean_est >= _RAW_THRESHOLD
             silent_flag = ~torch.any(
@@ -198,10 +257,9 @@ class TorchEncoder:
                     torch.stack(coefs, dim=-1), buf, sig_r)
 
         def fit_stage(sig_r, order):
-            rv = torch.tensor(ridges, dtype=sig_r.dtype,
-                              device=sig_r.device).reshape(
+            rv = ridge_vec(sig_r.device).reshape(
                 (nridge,) + (1,) * (sig_r.dim() - 1))
-            return A.fit_layer(sig_r, order, rv)
+            return A.fit_layer(sig_r, order, rv, windows)
 
         def select_stage(final_res, log2u_r, params_r):
             # winning ridge: first minimum, as the reference's strict-<
@@ -209,9 +267,9 @@ class TorchEncoder:
             final_loss = (torch.sum(torch.abs(final_res), dim=-1)
                           / final_res.shape[-1])
             best = torch.argmin(final_loss, dim=0)
-            rv = torch.tensor(ridges, dtype=dtype, device=best.device)
             return ([A.take_ridge(l, best) for l in log2u_r],
-                    [A.take_ridge(f, best) for f in params_r], rv[best])
+                    [A.take_ridge(f, best) for f in params_r],
+                    ridge_vec(best.device)[best])
 
         if p.num_afmethod_iterations > 0:
             af_stages = [
@@ -226,6 +284,7 @@ class TorchEncoder:
                 TRAINING_LEARNING_RATE, TRAINING_LOSS_EPSILON)
         else:
             train = None
+        refine = af_stages is not None or train is not None
 
         def finish_stage(raw_flag, silent_flag, pprev, pcoef, buf, log2u,
                          params, W):
@@ -264,11 +323,9 @@ class TorchEncoder:
             parts.append(pack_plane_words(k2s.to(torch.int32), 8))
             parts.append(pack_plane_words(x, W))
             packed = torch.cat([t.to(torch.int32) for t in parts], dim=-1)
-            return {"packed": packed, "residual": x}
+            return packed, x
 
-        def analyze(blocks, W=None):
-            if W is None:
-                W = _res_pack_width(bps)
+        def g1(blocks):
             raw_flag, silent_flag, pprev, pcoef, buf, sig_r = pre_stage(blocks)
             log2u_r = []
             params_r = []
@@ -278,23 +335,43 @@ class TorchEncoder:
                 log2u_r.append(log2u)
                 params_r.append(flat)
             log2u, params, ridge_val = select_stage(x, log2u_r, params_r)
+            return _G1Out(raw_flag, silent_flag, pprev, pcoef, buf, sig_r[0],
+                          tuple(log2u), tuple(params), ridge_val)
+
+        def middle(out):
+            """The params that `-a` and `-l` refine from G1's."""
+            params = list(out.params)
             if af_stages is not None:
                 # AF-refined final pass: refit layer by layer with IRLS
                 # under the winning ridge, cascading residuals
-                xa = sig_r[0]
+                xa = out.sig
                 params = []
-                for stage, layer_log2u in zip(af_stages, log2u):
-                    flat, xa = stage(xa, layer_log2u, ridge_val)
+                for stage, layer_log2u in zip(af_stages, out.log2u):
+                    flat, xa = stage(xa, layer_log2u, out.ridge_val)
                     params.append(flat)
             if train is not None:
                 # rows train independently, so padding rows (all zero:
                 # they stop after two iterations) change no real row
-                params, _iterations = train(sig_r[0], params, log2u)
-            return finish_stage(raw_flag, silent_flag, pprev, pcoef, buf,
-                                log2u, params, W)
+                params, _iterations = train(out.sig, params, list(out.log2u))
+            return params
 
-        self._analyze_cache[n] = (analyze, num_analyze)
-        return self._analyze_cache[n]
+        def g2(out, params, W):
+            return finish_stage(out.raw_flag, out.silent_flag, out.pprev,
+                                out.pcoef, out.buf, list(out.log2u),
+                                list(params), W)
+
+        def analyze(blocks, W=None):
+            if W is None:
+                W = _res_pack_width(bps)
+            out = g1(blocks)
+            params = middle(out) if refine else out.params
+            packed, residual = g2(out, params, W)
+            return {"packed": packed, "residual": residual}
+
+        chain = _StageChain(num_analyze, g1, middle if refine else None, g2,
+                            analyze)
+        self._analyze_cache[n] = chain
+        return chain
 
     def _side_layout(self, n: int):
         """Offsets into the packed result (see finish_stage): [raw, silent,
@@ -482,12 +559,62 @@ class TorchEncoder:
             p.bits_per_sample)
         return frame_block(BLOCK_TYPE_RAW, n, payload)
 
+    def _stage_graphs(self, device: torch.device):
+        """The StageGraphs of a CUDA device, made at its first batch; None
+        for the CPU, which runs the stage chain eagerly."""
+        if device.type != "cuda":
+            return None
+        if device.index is None:  # "cuda": the card that is current
+            device = torch.device("cuda", torch.cuda.current_device())
+        graphs = self._graphs.get(device)
+        if graphs is None:
+            graphs = self._graphs[device] = StageGraphs(device)
+        return graphs
+
+    def _run_stages(self, rows: torch.Tensor, n: int, device: torch.device,
+                    W: Optional[int] = None):
+        """The stage chain on one shard's [B, C, width] rows (a host or a
+        device tensor) on `device` at residual width W (default the widest
+        class): (packed, residual). On a CUDA device the stages run as the
+        device's graphs (codec/graphs.py; eagerly at a shape's first
+        batches): the rows are copied into G1's static input, then G1 runs,
+        then (with `-a`/`-l`) the eager middle on G1's outputs, its params
+        copied into G2's static inputs, then G2. `residual` is a copy the
+        caller may keep; `packed` may be G2's static output, valid until
+        the next run of this device's graphs. The CPU runs the chain
+        eagerly."""
+        chain = self._stage_chain(n)
+        if W is None:
+            W = _res_pack_width(self.parameter.bits_per_sample)
+        graphs = self._stage_graphs(device)
+        if graphs is None:
+            out = chain.analyze(rows.to(device), W)
+            return out["packed"], out["residual"]
+        shape = (n, rows.shape[0], rows.shape[1], rows.dtype)
+        blocks = graphs.buffer(("blocks",) + shape, rows.shape, rows.dtype)
+        blocks.copy_(rows, non_blocking=True)
+        out = graphs.run(("g1",) + shape, chain.g1, (blocks,))
+        params = out.params
+        if chain.middle is not None:
+            params = []
+            for li, p in enumerate(chain.middle(out)):
+                held = graphs.buffer(("params",) + shape + (li,), p.shape,
+                                     p.dtype)
+                held.copy_(p)
+                params.append(held)
+        packed, residual = graphs.run(
+            ("g2",) + shape + (W,), functools.partial(chain.g2, W=W),
+            (out, tuple(params)))
+        # kept per dispatch: the next batches' replays overwrite the static
+        # residual before this batch drains and fetches its overflow rows
+        return packed, residual.clone()
+
     def _dispatch_batch(self, blocks: np.ndarray, n: int,
                         real: Optional[int] = None):
         """Launch the stages on one [B, C, >=n] batch at the residual
         width _pick_width chooses and start the copy of the packed result
         to the host. Returns the item _drain_batch takes."""
-        fn, num_analyze = self._analyze_fn(n)
+        num_analyze = self._stage_chain(n).num_analyze
         W = self._pick_width(n)
         self.batch_widths.append(W)
         width = max(n, num_analyze)
@@ -507,8 +634,10 @@ class TorchEncoder:
         outs = []
         for d, a, b in shards(self.devices, up.shape[0]):
             with on_device(d):
-                out = fn(torch.from_numpy(up[a:b]).to(d), W)
-                packed = out["packed"]
+                rows = torch.from_numpy(up[a:b])
+                if d.type == "cuda":
+                    rows = rows.pin_memory()  # a non-blocking upload
+                packed, residual = self._run_stages(rows, n, d, W)
                 if d.type == "cuda":
                     host = torch.empty(packed.shape, dtype=torch.int32,
                                        pin_memory=True)
@@ -518,7 +647,7 @@ class TorchEncoder:
                 else:
                     host, ready = packed, None
             # the residual stays on the device for the overflow fetch
-            outs.append((host, ready, out["residual"], a))
+            outs.append((host, ready, residual, a))
         return (outs, blocks, n, real, W)
 
     def _encode_batch(self, blocks: np.ndarray, n: int) -> bytes:

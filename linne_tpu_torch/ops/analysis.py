@@ -69,9 +69,21 @@ def _rows(t: torch.Tensor) -> int:
     return rows
 
 
-def _window(window_type: int, n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(window_weights(window_type, n), dtype=like.dtype,
-                           device=like.device)
+def _window(window_type: int, n: int, like: torch.Tensor,
+            windows: dict | None = None) -> torch.Tensor:
+    """The window of `n` taps in like's dtype on its device. With
+    `windows`, a dict that the caller keeps, it is made at the first call
+    and kept there: a stage captured as a CUDA graph reads the same window
+    at every replay, so its owner keeps it as long as the graph
+    (codec/encoder.py keeps one such dict a stage chain)."""
+    key = (window_type, n, like.dtype, like.device)
+    w = None if windows is None else windows.get(key)
+    if w is None:
+        w = torch.as_tensor(window_weights(window_type, n), dtype=like.dtype,
+                            device=like.device)
+        if windows is not None:
+            windows[key] = w
+    return w
 
 
 def _autocorr_matmul(x: torch.Tensor, num_lags: int) -> torch.Tensor:
@@ -159,7 +171,7 @@ def _levinson_durbin_plain(ac: torch.Tensor, order: int,
                      ac.new_zeros(batch_shape + (order,))], dim=-1)
     zeros_a = ac.new_zeros(batch_shape + (order + 1,))
     a = zeros_a.clone()
-    a[..., 0] = 1.0
+    a[..., 0].fill_(1.0)  # no host scalar tensor: capturable
     ek = ac[..., 0]
     neg_gammas = []
     for k in range(order):
@@ -183,7 +195,7 @@ def _levinson_durbin_plain(ac: torch.Tensor, order: int,
 
 def fit_unit_lpc(
     signal: torch.Tensor, num_units: int, order_per_unit: int,
-    regular_term,
+    regular_term, windows: dict | None = None,
 ) -> torch.Tensor:
     """Per-unit Welch-windowed LPC fit of one unit-split candidate.
 
@@ -192,11 +204,12 @@ def fit_unit_lpc(
     dimension). Returns reversed (convolution-layout) coefficients
     [..., num_units, order_per_unit] matching the reference's parameter
     ordering (linne_network.c:310-316: h[0] oldest ... h[np-1] newest).
+    `windows` keeps the Welch windows (see _window).
     """
     n = signal.shape[-1]
     ns = n // num_units
     seg = signal.reshape(tuple(signal.shape[:-1]) + (num_units, ns))
-    windowed = seg * _window(WINDOW_WELCH, ns, signal)
+    windowed = seg * _window(WINDOW_WELCH, ns, signal, windows)
     ac = autocorrelation(windowed, order_per_unit + 1)
     ridge = 1.0 + torch.as_tensor(regular_term, dtype=signal.dtype,
                                   device=signal.device)
@@ -314,17 +327,19 @@ def candidate_units(order: int, n: int, max_units: int = 128) -> list:
     return cands
 
 
-def fit_layer(signal: torch.Tensor, order: int, regular_term):
+def fit_layer(signal: torch.Tensor, order: int, regular_term,
+              windows: dict | None = None):
     """Unit-count search + fit for one layer over a batched signal.
 
     Evaluates every candidate split, scores mean |residual| excluding sample
     0 (linne_network.c:319-337), picks the first minimum. Returns
     (log2_units[...], flat_params[..., order], residual[..., n], loss[...]).
+    `windows` keeps the Welch windows (see _window).
     """
     n = signal.shape[-1]
     best_loss = best_flat = best_res = best_log2u = None
     for u in candidate_units(order, n):
-        params = fit_unit_lpc(signal, u, order // u, regular_term)
+        params = fit_unit_lpc(signal, u, order // u, regular_term, windows)
         res = unit_forward(signal, params, u)
         loss = torch.sum(torch.abs(res[..., 1:]), dim=-1) / n
         flat = params.reshape(tuple(params.shape[:-2]) + (order,))
@@ -447,11 +462,13 @@ def _quantize_coefficients_plain(coefs: torch.Tensor, nbits: int = 8):
 
 def estimate_code_length(
     signal: torch.Tensor, order: int, bits_per_sample: int,
+    windows: dict | None = None,
 ) -> torch.Tensor:
     """Batched bits/sample estimate for the block-type decision
-    (reference: lpc.c:810-865). signal: [..., n] normalized float."""
+    (reference: lpc.c:810-865). signal: [..., n] normalized float;
+    `windows` keeps the sine window (see _window)."""
     n = signal.shape[-1]
-    windowed = signal * _window(WINDOW_SIN, n, signal)
+    windowed = signal * _window(WINDOW_SIN, n, signal, windows)
     ac = autocorrelation(windowed, order + 1)
     _, parcor = levinson_durbin(ac, order, with_parcor=True)
     power = ac[..., 0] * 2.0 ** (2.0 * (bits_per_sample - 1))

@@ -79,10 +79,12 @@ def predict_cascade_layer(
         _predict_fixed_units(x, coefs, u, rshift) for u in unit_choices
     ]
     stack = torch.stack(variants, dim=0)  # [nvar, ..., n]
-    choice_map = {u: i for i, u in enumerate(unit_choices)}
-    lut = torch.tensor([choice_map.get(1 << l, 0) for l in range(8)],
-                       dtype=torch.int64, device=x.device)
-    idx = lut[log2_units.long()]
+    # each row's variant: the index of its unit count among the choices
+    # (0 for a count that is none of them), from device ops alone, so that
+    # the stage holds no host data and can be captured as a CUDA graph
+    idx = torch.zeros_like(log2_units, dtype=torch.int64)
+    for i, u in enumerate(unit_choices):
+        idx = torch.where(log2_units == u.bit_length() - 1, i, idx)
     idx = idx[None, ..., None].expand((1,) + x.shape)
     return torch.gather(stack, 0, idx)[0]
 

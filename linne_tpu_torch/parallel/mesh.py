@@ -13,9 +13,13 @@ the reference's `pmean` of the shards' losses, is a mean over the shards
 inside this process: no path crosses processes.
 
 Entries may repeat: ["cpu", "cpu"] runs the split on the CPU, and
-["cuda:0", "cuda:0"] on a machine with one card. Dispatch stays on the
-calling thread, as in the reference; the callers enqueue every shard's work
-before they read any result, so several cards compute at once.
+["cuda:0", "cuda:0"] on a machine with one card. The batched encoder
+keeps one set of stage graphs per CUDA device of the list
+(codec/graphs.py), entered under `on_device`; shards of one device share
+it, and a shard whose row count differs has graphs of its own. Dispatch
+stays on the calling thread, as in the reference; the callers enqueue
+every shard's work before they read any result, so several cards compute
+at once.
 """
 
 from __future__ import annotations
@@ -105,14 +109,17 @@ def shard_blocks(mesh: Sequence[torch.device], blocks) -> List[torch.Tensor]:
 def sharded_analyze(encoder, mesh: Sequence[torch.device], blocks,
                     n: int) -> torch.Tensor:
     """Run the encoder's batched stage chain data-parallel over the mesh:
-    each row shard on its device, the packed results (at the widest
-    residual class) joined in row order on the host. Equal, bit for bit,
-    to the unsharded call's "packed"."""
-    fn, _ = encoder._analyze_fn(n)
+    each row shard on its device (a CUDA device replays the encoder's
+    graphs of that device, codec/graphs.py), the packed results (at the
+    widest residual class) joined in row order on the host. Equal, bit
+    for bit, to the unsharded call's "packed"."""
     outs = []
     for shard in shard_blocks(mesh, blocks):
         with on_device(shard.device):
-            outs.append(fn(shard)["packed"])
+            packed, _residual = encoder._run_stages(shard, n, shard.device)
+            # on a card, the next shard of the device may replay the same
+            # graph and overwrite its static output
+            outs.append(packed.clone() if packed.is_cuda else packed)
     return torch.cat([o.cpu() for o in outs])
 
 

@@ -107,7 +107,7 @@ def test_encode_block_matches_encode_whole():
     assert bytes(out) == whole
 
 
-def test_learning_and_af_are_not_ported():
+def test_learning_and_af_are_taken():
     """set_encode_parameter, which once refused -l and -a, takes them, and
     a block encodes losslessly with each (bytes against TpuEncoder's:
     tests/test_torch_afmethod.py, tests/test_torch_training.py)."""

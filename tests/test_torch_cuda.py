@@ -929,12 +929,54 @@ def test_scans_quantize_main_path_one_launch_a_batch(monkeypatch):
     before = AS.KERNEL_LAUNCHES["quantize_coefficients"]
     datas = enc.encode_many(chans, lengths)
     launches = AS.KERNEL_LAUNCHES["quantize_coefficients"] - before
-    assert launches == len(calls) >= 3 and set(calls) == {3}
+    # the stages run as graphs: the wrapper runs in Python at a shape's
+    # eager first batch and at its capture, and the launches count per run
+    assert launches == len(enc.batch_widths) >= 3 and set(calls) == {3}
     monkeypatch.setattr(A, "quantize_layers", A._quantize_layers_plain)
     enc = TorchEncoder(batch_blocks=4, device="cuda")
     enc.set_encode_parameter(param)
     assert enc.encode_many(chans, lengths) == datas
     assert AS.KERNEL_LAUNCHES["quantize_coefficients"] == before + launches
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"], ["cuda:0", "cuda:0"]],
+                         ids=["one", "two-shards"])
+def test_graph_encode_equals_eager_on_card(monkeypatch, routes, devices):
+    """The batched encode replaying its stages as CUDA graphs gives the
+    bytes of the same encode run eagerly on the card (the graph lookup
+    patched out), on both routes, at a forced 6-bit residual class (every
+    live block fetches its residual after later batches were dispatched)
+    and with a device-encoded tail (the mixed-unit predict branch)."""
+    _require_card()
+    from linne_tpu_torch.codec import encoder as E
+    from linne_tpu_torch.codec import graphs as G
+
+    monkeypatch.setattr(E, "_res_width_classes", lambda bps: (6,))
+    monkeypatch.setattr(G, "CAPTURE_AT", 2)  # the few batches capture
+    sigs = [_track(9 * 2048 + 301, 5), _track(5 * 2048 + 301, 6)]
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=2048, preset=7, ch_process_method=1)
+    chans, lengths = [[s[0], s[1]] for s in sigs], [s.shape[1] for s in sigs]
+    streams = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(TorchEncoder, "_stage_graphs",
+                                lambda self, device: None)
+        enc = TorchEncoder(batch_blocks=4, devices=devices,
+                           tail_mode="device")
+        enc.set_encode_parameter(param)
+        streams.append(enc.encode_many(chans, lengths))
+        assert enc.overflow_rows > 0
+        if not eager:
+            graphs = enc._graphs[torch.device("cuda", 0)]
+            assert graphs.captures > 0
+            assert (graphs.eager_runs + graphs.replays
+                    >= 2 * len(enc.batch_widths))
+    assert streams[0] == streams[1]
+    for sig, data in zip(sigs, streams[0]):
+        out = Decoder().decode_whole(data)
+        assert all(np.array_equal(out[c], sig[c]) for c in range(2))
 
 
 def _scan_levinson_rows(rows, order, seed):

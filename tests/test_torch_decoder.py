@@ -144,7 +144,7 @@ def test_cli_encode_decode_roundtrip(tmp_path, encoder):
 
 
 @pytest.mark.parametrize("flags", [["-l"], ["-a", "2"], ["-l", "-a", "1"]])
-def test_cli_unported_flags_exit_2(tmp_path, flags):
+def test_cli_learning_and_af_flags_round_trip(tmp_path, flags):
     """-l and -a, which the batched encoder once refused with exit 2, now
     encode through it (one full block, then a host-encoded tail) and
     round-trip losslessly. Noise: its training stops within ~110
