@@ -31,7 +31,13 @@ block length: each batch is dispatched at the narrowest class of
 _res_width_classes that covers the widest residual of the last drained
 batch of that length. The int32 residual tensor stays on the device until
 its batch is drained; the rare blocks whose residual is wider than W are
-fetched from it at full width. With a device list (`devices=`,
+fetched from it at full width. The host's phases open spans
+(utils/profiling.py: "encode", "encode.split", "encode.dispatch" with
+".stage", ".launch" and ".fetch", "encode.drain" with ".wait",
+".overflow" and ".pack", "encode.tails", "encode.frame"), and
+`queue_waits` counts the copies that wait for all the work queued on the
+device (the overflow fetch's pageable upload and blocking read, the ridge
+terms' upload when a chain is built). With a device list (`devices=`,
 parallel/mesh.py) each batch's rows split into one shard per entry, each
 with its own copy, event and residual tensor.
 """
@@ -79,6 +85,7 @@ from ..ops import rice_search as R
 from ..ops import training
 from ..ops.bitpack import pack_geometry, pack_plane_words
 from ..parallel.mesh import on_device, pad_rows, resolve_devices, shards
+from ..utils.profiling import span
 from .graphs import StageGraphs
 
 _RAW_THRESHOLD = float(np.float32(0.95))
@@ -164,11 +171,14 @@ class TorchEncoder:
         self._graphs = {}  # CUDA device -> its StageGraphs
         self._maxw_seen = {}  # block length -> widest residual seen
         # transfer counters over the encoder's life: the W of every
-        # dispatched batch, the int32 rows fetched past W, and the bytes
-        # copied to the host (packed tensors and fetched rows)
+        # dispatched batch, the int32 rows fetched past W, the bytes
+        # copied to the host (packed tensors and fetched rows), and the
+        # copies that wait for all the work queued on the device (uploads
+        # from pageable memory, blocking reads)
         self.batch_widths: List[int] = []
         self.overflow_rows = 0
         self.bytes_to_host = 0
+        self.queue_waits = 0
 
     def set_encode_parameter(self, parameter: EncodeParameter) -> None:
         parameter.validate_against(self.config)
@@ -224,6 +234,7 @@ class TorchEncoder:
             rv = ridge_tensors.get(device)
             if rv is None:
                 rv = torch.tensor(ridges, dtype=dtype, device=device)
+                self.queue_waits += 1
                 ridge_tensors[device] = rv
             return rv
 
@@ -462,44 +473,46 @@ class TorchEncoder:
                      num_samples: int, progress_cb=None) -> bytes:
         if self.parameter is None:
             raise RuntimeError("set_encode_parameter not called")
-        p = self.parameter
-        spb = p.num_samples_per_block
-        out = bytearray(self._header(num_samples))
-        num_full = num_samples // spb
-        tail = num_samples - num_full * spb
-        signal = np.stack([np.asarray(c[:num_samples], dtype=np.int32)
-                           for c in channels[: p.num_channels]])
+        with span("encode"):
+            p = self.parameter
+            spb = p.num_samples_per_block
+            out = bytearray(self._header(num_samples))
+            num_full = num_samples // spb
+            tail = num_samples - num_full * spb
+            signal = np.stack([np.asarray(c[:num_samples], dtype=np.int32)
+                               for c in channels[: p.num_channels]])
 
-        def gen_batches():
-            if num_full:
-                blocks = signal[:, : num_full * spb].reshape(
-                    p.num_channels, num_full, spb).transpose(1, 0, 2)
-                yield from self._full_batches(blocks)
-            if tail:
-                tail_sig = signal[:, num_full * spb :]
-                if not compress_viable(self.preset, spb, tail):
-                    # too short for any unit split (the reference segfaults
-                    # on such tails): frame raw/silent on the host
-                    yield self._frame_short_block(tail_sig, tail)
-                    return
-                if self._use_host_tail(tail):
-                    yield self._encode_tail_host(tail_sig, tail)
-                    return
-                tail_block = np.zeros((1, p.num_channels, tail), np.int32)
-                tail_block[0] = tail_sig
-                yield (tail_block, tail, 1)
+            def gen_batches():
+                if num_full:
+                    blocks = signal[:, : num_full * spb].reshape(
+                        p.num_channels, num_full, spb).transpose(1, 0, 2)
+                    yield from self._full_batches(blocks)
+                if tail:
+                    tail_sig = signal[:, num_full * spb :]
+                    if not compress_viable(self.preset, spb, tail):
+                        # too short for any unit split (the reference
+                        # segfaults on such tails): frame raw/silent on
+                        # the host
+                        yield self._frame_short_block(tail_sig, tail)
+                        return
+                    if self._use_host_tail(tail):
+                        yield self._encode_tail_host(tail_sig, tail)
+                        return
+                    tail_block = np.zeros((1, p.num_channels, tail), np.int32)
+                    tail_block[0] = tail_sig
+                    yield (tail_block, tail, 1)
 
-        done = 0
-        for item in self._pipeline(gen_batches()):
-            if isinstance(item, bytes):  # host-framed short block
-                out += item
-                done = num_samples
-            else:
-                out += b"".join(self._drain_batch(*item))
-                done += item[3] * item[2]  # real blocks * block length
-            if progress_cb is not None:
-                progress_cb(min(done, num_samples), num_samples)
-        return bytes(out)
+            done = 0
+            for item in self._pipeline(gen_batches()):
+                if isinstance(item, bytes):  # host-framed short block
+                    out += item
+                    done = num_samples
+                else:
+                    out += b"".join(self._drain_batch(*item))
+                    done += item[3] * item[2]  # real blocks * block length
+                if progress_cb is not None:
+                    progress_cb(min(done, num_samples), num_samples)
+            return bytes(out)
 
     def _pipeline(self, batch_args):
         """Dispatch ahead by PIPELINE_DEPTH, yielding dispatched items in
@@ -614,40 +627,47 @@ class TorchEncoder:
         """Launch the stages on one [B, C, >=n] batch at the residual
         width _pick_width chooses and start the copy of the packed result
         to the host. Returns the item _drain_batch takes."""
-        num_analyze = self._stage_chain(n).num_analyze
-        W = self._pick_width(n)
-        self.batch_widths.append(W)
-        width = max(n, num_analyze)
-        if blocks.shape[-1] < width:
-            pad = np.zeros(blocks.shape[:-1] + (width - blocks.shape[-1],),
-                           dtype=np.int32)
-            blocks = np.concatenate([blocks, pad], axis=-1)
-        if real is None:
-            real = blocks.shape[0]
-        if self.parameter.bits_per_sample <= 16:
-            up = blocks.astype(np.int16)  # halve the upload
-        else:
-            up = np.ascontiguousarray(blocks, dtype=np.int32)
-        # rows beyond the real ones (zero, dropped in the drain) make the
-        # shards equal
-        up = pad_rows(up, len(self.devices))
-        outs = []
-        for d, a, b in shards(self.devices, up.shape[0]):
-            with on_device(d):
-                rows = torch.from_numpy(up[a:b])
-                if d.type == "cuda":
-                    rows = rows.pin_memory()  # a non-blocking upload
-                packed, residual = self._run_stages(rows, n, d, W)
-                if d.type == "cuda":
-                    host = torch.empty(packed.shape, dtype=torch.int32,
-                                       pin_memory=True)
-                    host.copy_(packed, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record(torch.cuda.current_stream(d))
+        with span("encode.dispatch"):
+            with span("encode.dispatch.stage"):
+                num_analyze = self._stage_chain(n).num_analyze
+                W = self._pick_width(n)
+                self.batch_widths.append(W)
+                width = max(n, num_analyze)
+                if blocks.shape[-1] < width:
+                    pad = np.zeros(
+                        blocks.shape[:-1] + (width - blocks.shape[-1],),
+                        dtype=np.int32)
+                    blocks = np.concatenate([blocks, pad], axis=-1)
+                if real is None:
+                    real = blocks.shape[0]
+                if self.parameter.bits_per_sample <= 16:
+                    up = blocks.astype(np.int16)  # halve the upload
                 else:
-                    host, ready = packed, None
-            # the residual stays on the device for the overflow fetch
-            outs.append((host, ready, residual, a))
+                    up = np.ascontiguousarray(blocks, dtype=np.int32)
+                # rows beyond the real ones (zero, dropped in the drain)
+                # make the shards equal
+                up = pad_rows(up, len(self.devices))
+            outs = []
+            for d, a, b in shards(self.devices, up.shape[0]):
+                with on_device(d):
+                    with span("encode.dispatch.stage"):
+                        rows = torch.from_numpy(up[a:b])
+                        if d.type == "cuda":
+                            rows = rows.pin_memory()  # a non-blocking upload
+                    with span("encode.dispatch.launch"):
+                        packed, residual = self._run_stages(rows, n, d, W)
+                    with span("encode.dispatch.fetch"):
+                        if d.type == "cuda":
+                            host = torch.empty(packed.shape,
+                                               dtype=torch.int32,
+                                               pin_memory=True)
+                            host.copy_(packed, non_blocking=True)
+                            ready = torch.cuda.Event()
+                            ready.record(torch.cuda.current_stream(d))
+                        else:
+                            host, ready = packed, None
+                # the residual stays on the device for the overflow fetch
+                outs.append((host, ready, residual, a))
         return (outs, blocks, n, real, W)
 
     def _encode_batch(self, blocks: np.ndarray, n: int) -> bytes:
@@ -659,14 +679,15 @@ class TorchEncoder:
         LINNEEncoder_EncodeBlock, include/linne_encoder.h). For throughput
         use encode_whole/encode_many — they batch blocks."""
         p = self.parameter
-        block = np.zeros((1, p.num_channels, n), dtype=np.int32)
-        for c in range(p.num_channels):
-            block[0, c] = np.asarray(channels[c][:n], dtype=np.int32)
-        if not compress_viable(self.preset, p.num_samples_per_block, n):
-            return self._frame_short_block(block[0], n)
-        if n < p.num_samples_per_block and self._use_host_tail(n):
-            return self._encode_tail_host(block[0], n)
-        return self._encode_batch(block, n)
+        with span("encode"):
+            block = np.zeros((1, p.num_channels, n), dtype=np.int32)
+            for c in range(p.num_channels):
+                block[0, c] = np.asarray(channels[c][:n], dtype=np.int32)
+            if not compress_viable(self.preset, p.num_samples_per_block, n):
+                return self._frame_short_block(block[0], n)
+            if n < p.num_samples_per_block and self._use_host_tail(n):
+                return self._encode_tail_host(block[0], n)
+            return self._encode_batch(block, n)
 
     def encode_many(self, tracks: Sequence[Sequence[np.ndarray]],
                     num_samples: Sequence[int]) -> List[bytes]:
@@ -674,80 +695,87 @@ class TorchEncoder:
         together, tails are grouped by length. Returns one .lnn byte string
         per track. Tails follow the same rule as encode_whole
         (_use_host_tail), so the two APIs produce identical bytes."""
-        p = self.parameter
-        spb = p.num_samples_per_block
-        nch = p.num_channels
+        with span("encode"):
+            p = self.parameter
+            spb = p.num_samples_per_block
+            nch = p.num_channels
+            tail_pool = None
+            try:
+                with span("encode.split"):
+                    track_lengths = []
+                    placements = []  # (track, block in track), in order
+                    all_full = []
+                    tails = {}  # length -> list of (track, block, data)
+                    for ti, (chans, ns) in enumerate(zip(tracks,
+                                                         num_samples)):
+                        sig = np.stack([np.asarray(c[:ns], dtype=np.int32)
+                                        for c in chans[:nch]])
+                        track_lengths.append(ns)
+                        nfull = ns // spb
+                        for b in range(nfull):
+                            all_full.append(sig[:, b * spb : (b + 1) * spb])
+                            placements.append((ti, b))
+                        tail = ns - nfull * spb
+                        if tail:
+                            tails.setdefault(tail, []).append(
+                                (ti, nfull, sig[:, nfull * spb :]))
 
-        track_lengths = []
-        placements = []  # (track, block_index_in_track) in global order
-        all_full = []
-        tails = {}  # length -> list of (track_idx, block_idx, data)
-        for ti, (chans, ns) in enumerate(zip(tracks, num_samples)):
-            sig = np.stack([np.asarray(c[:ns], dtype=np.int32)
-                            for c in chans[:nch]])
-            track_lengths.append(ns)
-            nfull = ns // spb
-            for b in range(nfull):
-                all_full.append(sig[:, b * spb : (b + 1) * spb])
-                placements.append((ti, b))
-            tail = ns - nfull * spb
-            if tail:
-                tails.setdefault(tail, []).append(
-                    (ti, nfull, sig[:, nfull * spb :]))
+                    per_track_blocks = {ti: {} for ti in range(len(tracks))}
 
-        per_track_blocks = {ti: {} for ti in range(len(tracks))}
+                    # classify tails before the device loop: host tails are
+                    # standalone blocks, so they encode on worker threads
+                    # while this thread feeds the device; the decision must
+                    # not see lengths built later here
+                    host_tail_members = []  # (ti, b, data, tail_len)
+                    device_tails = []
+                    for tail_len, members in tails.items():
+                        if not compress_viable(self.preset, spb, tail_len):
+                            for ti, b, data in members:
+                                per_track_blocks[ti][b] = \
+                                    self._frame_short_block(data, tail_len)
+                        elif self._use_host_tail(tail_len):
+                            host_tail_members.extend(
+                                (ti, b, data, tail_len)
+                                for ti, b, data in members)
+                        else:
+                            device_tails.append((tail_len, members))
 
-        # classify tails before the device loop: host tails are standalone
-        # blocks, so they encode on worker threads while this thread feeds
-        # the device; the decision must not see lengths built later here
-        host_tail_members = []  # (ti, b, data, tail_len)
-        device_tails = []
-        for tail_len, members in tails.items():
-            if not compress_viable(self.preset, spb, tail_len):
-                for ti, b, data in members:
-                    per_track_blocks[ti][b] = self._frame_short_block(
-                        data, tail_len)
-            elif self._use_host_tail(tail_len):
-                host_tail_members.extend(
-                    (ti, b, data, tail_len) for ti, b, data in members)
-            else:
-                device_tails.append((tail_len, members))
+                    tail_futures = []
+                    if host_tail_members:
+                        tail_pool = ThreadPoolExecutor(max_workers=min(
+                            len(host_tail_members), os.cpu_count() or 1))
+                        tail_futures = [
+                            tail_pool.submit(self._encode_tail_host, data, tl)
+                            for (_ti, _b, data, tl) in host_tail_members]
+                    full_blocks = np.stack(all_full) if all_full else None
+                if full_blocks is not None:
+                    start = 0
+                    for item in self._pipeline(
+                            self._full_batches(full_blocks)):
+                        framed = self._drain_batch(*item)
+                        for off, block_bytes in enumerate(framed):
+                            ti, b = placements[start + off]
+                            per_track_blocks[ti][b] = block_bytes
+                        start += item[3]
+                with span("encode.tails"):
+                    for tail_len, members in device_tails:
+                        batch = np.stack([m[2] for m in members])
+                        framed = self._drain_batch(
+                            *self._dispatch_batch(batch, tail_len))
+                        for (ti, b, _), block_bytes in zip(members, framed):
+                            per_track_blocks[ti][b] = block_bytes
+                    for (ti, b, _d, _tl), fut in zip(host_tail_members,
+                                                     tail_futures):
+                        per_track_blocks[ti][b] = fut.result()
+            finally:
+                if tail_pool is not None:
+                    tail_pool.shutdown()
 
-        tail_pool = None
-        tail_futures = []
-        if host_tail_members:
-            tail_pool = ThreadPoolExecutor(
-                max_workers=min(len(host_tail_members), os.cpu_count() or 1))
-            tail_futures = [
-                tail_pool.submit(self._encode_tail_host, data, tl)
-                for (_ti, _b, data, tl) in host_tail_members]
-        try:
-            if all_full:
-                start = 0
-                for item in self._pipeline(
-                        self._full_batches(np.stack(all_full))):
-                    framed = self._drain_batch(*item)
-                    for off, block_bytes in enumerate(framed):
-                        ti, b = placements[start + off]
-                        per_track_blocks[ti][b] = block_bytes
-                    start += item[3]
-            for tail_len, members in device_tails:
-                batch = np.stack([m[2] for m in members])
-                framed = self._drain_batch(
-                    *self._dispatch_batch(batch, tail_len))
-                for (ti, b, _), block_bytes in zip(members, framed):
-                    per_track_blocks[ti][b] = block_bytes
-            for (ti, b, _d, _tl), fut in zip(host_tail_members,
-                                             tail_futures):
-                per_track_blocks[ti][b] = fut.result()
-        finally:
-            if tail_pool is not None:
-                tail_pool.shutdown()
-
-        return [self._header(ns) + b"".join(
-                    per_track_blocks[ti][b]
-                    for b in sorted(per_track_blocks[ti]))
-                for ti, ns in enumerate(track_lengths)]
+            with span("encode.frame"):
+                return [self._header(ns) + b"".join(
+                            per_track_blocks[ti][b]
+                            for b in sorted(per_track_blocks[ti]))
+                        for ti, ns in enumerate(track_lengths)]
 
     @staticmethod
     def _unpack_bytes(words: np.ndarray, count: int,
@@ -785,80 +813,87 @@ class TorchEncoder:
         and frame its first `real` blocks. Blocks whose residual is wider
         than W take their int32 rows from the shard that holds them; raw
         and silent blocks read no residual."""
-        for _host, ready, _res, _a in out:
-            if ready is not None:
-                ready.synchronize()
-        parts = [host.numpy() for host, _ready, _res, _a in out]
-        packed = (parts[0] if len(parts) == 1
-                  else np.concatenate(parts))  # [B, C, side_k + words]
-        self.bytes_to_host += packed.nbytes
-        p = self.parameter
-        L = self.preset.num_layers
-        total_order = sum(self.preset.layer_num_params)
-        (off_layers, off_porder, off_coefw, off_k2w, side_k,
-         max_parts) = self._side_layout(n)
-        side = packed[..., :side_k]
-        words = packed[..., side_k:]
-        raw = side[:, 0, 0] != 0
-        silent = side[:, 0, 1] != 0
-        maxw = side[:, 0, 2]
-        # feed the width choice of the next batch of this length from the
-        # blocks that carry residuals
-        live = ~raw[:real] & ~silent[:real]
-        if live.any():
-            self._maxw_seen[n] = int(maxw[:real][live].max())
-        over = np.nonzero((maxw[:real] > W) & live)[0]
-        full = {}  # block -> its int32 residual rows, fetched past W
-        for _host, _ready, residual, a in out:
-            mine = over[(over >= a) & (over < a + residual.shape[0])]
-            if mine.size:
-                idx = torch.from_numpy(mine - a).to(residual.device)
-                rows = residual.index_select(0, idx).cpu().numpy()
-                full.update(zip(mine.tolist(), rows))
-                self.overflow_rows += int(mine.size)
-                self.bytes_to_host += rows.nbytes
+        with span("encode.drain"):
+            with span("encode.drain.wait"):
+                for _host, ready, _res, _a in out:
+                    if ready is not None:
+                        ready.synchronize()
+            parts = [host.numpy() for host, _ready, _res, _a in out]
+            packed = (parts[0] if len(parts) == 1
+                      else np.concatenate(parts))  # [B, C, side_k + words]
+            self.bytes_to_host += packed.nbytes
+            p = self.parameter
+            total_order = sum(self.preset.layer_num_params)
+            (off_layers, off_porder, off_coefw, off_k2w, side_k,
+             max_parts) = self._side_layout(n)
+            side = packed[..., :side_k]
+            words = packed[..., side_k:]
+            raw = side[:, 0, 0] != 0
+            silent = side[:, 0, 1] != 0
+            maxw = side[:, 0, 2]
+            # feed the width choice of the next batch of this length from
+            # the blocks that carry residuals
+            live = ~raw[:real] & ~silent[:real]
+            if live.any():
+                self._maxw_seen[n] = int(maxw[:real][live].max())
+            over = np.nonzero((maxw[:real] > W) & live)[0]
+            full = {}  # block -> its int32 residual rows, fetched past W
+            with span("encode.drain.overflow"):
+                for _host, _ready, residual, a in out:
+                    mine = over[(over >= a) & (over < a + residual.shape[0])]
+                    if mine.size:
+                        idx = torch.from_numpy(mine - a).to(residual.device)
+                        rows = residual.index_select(0, idx).cpu().numpy()
+                        # the pageable upload of idx and the blocking read
+                        self.queue_waits += 2
+                        full.update(zip(mine.tolist(), rows))
+                        self.overflow_rows += int(mine.size)
+                        self.bytes_to_host += rows.nbytes
 
-        def residual_of(b: int) -> np.ndarray:
-            """Block b's [C, n] residual: unpacked from the W-bit plane on
-            the packing thread (the native unpack runs without the GIL),
-            or its fetched int32 rows."""
-            if b in full:
-                return full[b][:, :n]
-            if native.available():
-                g, _ = pack_geometry(W)
-                return native.unpack_bits(words[b], W, _roundup(n, g))[:, :n]
-            return self._unpack_res(words[b], W)[:, :n]
+            def residual_of(b: int) -> np.ndarray:
+                """Block b's [C, n] residual: unpacked from the W-bit plane
+                on the packing thread (the native unpack runs without the
+                GIL), or its fetched int32 rows."""
+                if b in full:
+                    return full[b][:, :n]
+                if native.available():
+                    g, _ = pack_geometry(W)
+                    return native.unpack_bits(words[b], W,
+                                              _roundup(n, g))[:, :n]
+                return self._unpack_res(words[b], W)[:, :n]
 
-        pprev = side[..., 3 : 3 + NUM_PREEMPH_FILTERS]
-        pcoef = side[..., 3 + NUM_PREEMPH_FILTERS : off_layers]
-        log2u = side[..., off_layers : off_porder : 2]
-        rshift = side[..., off_layers + 1 : off_porder : 2]
-        porder = side[..., off_porder]
-        coefs = self._unpack_bytes(side[..., off_coefw:off_k2w], total_order,
-                                   signed=True)
-        k2s = self._unpack_bytes(side[..., off_k2w:side_k], max_parts,
-                                 signed=False)
+            with span("encode.drain.pack"):
+                pprev = side[..., 3 : 3 + NUM_PREEMPH_FILTERS]
+                pcoef = side[..., 3 + NUM_PREEMPH_FILTERS : off_layers]
+                log2u = side[..., off_layers : off_porder : 2]
+                rshift = side[..., off_layers + 1 : off_porder : 2]
+                porder = side[..., off_porder]
+                coefs = self._unpack_bytes(side[..., off_coefw:off_k2w],
+                                           total_order, signed=True)
+                k2s = self._unpack_bytes(side[..., off_k2w:side_k],
+                                         max_parts, signed=False)
 
-        def pack_one(b: int) -> bytes:
-            if raw[b]:
-                payload = write_raw_payload(
-                    [blocks[b, ch, :n] for ch in range(p.num_channels)],
-                    p.bits_per_sample)
-                btype = BLOCK_TYPE_RAW
-            elif silent[b]:
-                payload = b""
-                btype = BLOCK_TYPE_SILENT
-            else:
-                payload = self._write_compress_payload(
-                    pprev[b], pcoef[b], log2u[b], rshift[b], coefs[b],
-                    porder[b], k2s[b], residual_of(b))
-                btype = BLOCK_TYPE_COMPRESS
-            return frame_block(btype, n, payload)
+                def pack_one(b: int) -> bytes:
+                    if raw[b]:
+                        payload = write_raw_payload(
+                            [blocks[b, ch, :n]
+                             for ch in range(p.num_channels)],
+                            p.bits_per_sample)
+                        btype = BLOCK_TYPE_RAW
+                    elif silent[b]:
+                        payload = b""
+                        btype = BLOCK_TYPE_SILENT
+                    else:
+                        payload = self._write_compress_payload(
+                            pprev[b], pcoef[b], log2u[b], rshift[b],
+                            coefs[b], porder[b], k2s[b], residual_of(b))
+                        btype = BLOCK_TYPE_COMPRESS
+                    return frame_block(btype, n, payload)
 
-        # blocks pack independently; the native payload packer runs without
-        # the GIL, so thread on multicore hosts
-        ncpu = os.cpu_count() or 1
-        if real > 1 and ncpu > 1 and native.available():
-            with ThreadPoolExecutor(max_workers=min(ncpu, 8)) as ex:
-                return list(ex.map(pack_one, range(real)))
-        return [pack_one(b) for b in range(real)]
+                # blocks pack independently; the native payload packer runs
+                # without the GIL, so thread on multicore hosts
+                ncpu = os.cpu_count() or 1
+                if real > 1 and ncpu > 1 and native.available():
+                    with ThreadPoolExecutor(max_workers=min(ncpu, 8)) as ex:
+                        return list(ex.map(pack_one, range(real)))
+                return [pack_one(b) for b in range(real)]

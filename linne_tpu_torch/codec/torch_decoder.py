@@ -24,6 +24,13 @@ stream; a flagged row is fetched again at int32 from the shard that holds
 it. Pools larger than 2 x _DL_CHUNK_ROWS rows come down in row chunks, each
 its own non-blocking copy into pinned memory behind a CUDA event, so the
 host unpacks chunk k while the later chunks land.
+
+The host's phases open spans (utils/profiling.py: "decode",
+"decode.parse", "decode.upload", "decode.layers", "decode.download" with
+".wait" and ".refetch", "decode.assemble"), and `queue_waits` counts the
+copies that wait for all the work queued on the device: the residual
+upload and its int32 patch, each synthesis group's index, coefficient and
+shift uploads, and the flagged refetch's upload and blocking read.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from ..presets import PRESETS
 from ..ops.bitpack import pack_geometry, pack_plane_words
 from ..ops.synthesis import synthesize_rows
 from ..parallel.mesh import on_device, resolve_devices, shards
+from ..utils.profiling import span
 
 # Rows per chunk of the streamed reconstruction download.
 _DL_CHUNK_ROWS = 128
@@ -119,11 +127,14 @@ class TorchDecoder:
         self.header = None
         # transfer counters over the decoder's life: bytes uploaded and
         # downloaded (packed planes, flags and refetched rows), download
-        # chunks, and rows flagged past the download width
+        # chunks, rows flagged past the download width, and the copies
+        # that wait for all the work queued on the device (uploads from
+        # pageable memory, blocking reads)
         self.bytes_up = 0
         self.bytes_down = 0
         self.download_chunks = 0
         self.flagged_rows = 0
+        self.queue_waits = 0
 
     # -- host entropy stage --------------------------------------------------
 
@@ -251,14 +262,15 @@ class TorchDecoder:
             shard_R = [self._synthesize_shard(d, members_n[a:b], by_key, n,
                                               orders, nch)
                        for d, a, b in spans]
-            downs = []
-            for R in shard_R:
-                with on_device(R.device):
-                    downs.append(_start_download(_pack_download(R, W)))
-            host_R = np.empty((len(members_n) * nch, -(-n // g) * g),
-                              np.int32)
-            for (_d, a, b), R, chunks in zip(spans, shard_R, downs):
-                self._download(R, chunks, W, n, host_R[a * nch : b * nch])
+            with span("decode.download"):
+                downs = []
+                for R in shard_R:
+                    with on_device(R.device):
+                        downs.append(_start_download(_pack_download(R, W)))
+                host_R = np.empty((len(members_n) * nch, -(-n // g) * g),
+                                  np.int32)
+                for (_d, a, b), R, chunks in zip(spans, shard_R, downs):
+                    self._download(R, chunks, W, n, host_R[a * nch : b * nch])
             out_groups.append((n, host_R, members_n))
         return out_groups
 
@@ -270,7 +282,8 @@ class TorchDecoder:
         flags = np.empty(out.shape[0], np.int32)
         for start, part, ready in chunks:
             if ready is not None:
-                ready.synchronize()
+                with span("decode.download.wait"):
+                    ready.synchronize()
             words = part.numpy()
             stop = start + words.shape[0]
             flags[start:stop] = words[:, 0]
@@ -283,8 +296,11 @@ class TorchDecoder:
         self.download_chunks += len(chunks)
         wide = np.nonzero(flags)[0]
         if wide.size:
-            idx = torch.from_numpy(wide).to(R.device)
-            full = R.index_select(0, idx).cpu().numpy()
+            with span("decode.download.refetch"):
+                idx = torch.from_numpy(wide).to(R.device)
+                full = R.index_select(0, idx).cpu().numpy()
+            # the pageable upload of idx and the blocking read
+            self.queue_waits += 2
             out[wide, :n] = full
             self.flagged_rows += int(wide.size)
             self.bytes_down += full.nbytes
@@ -296,18 +312,22 @@ class TorchDecoder:
         rows go up as int16, the rows that do not fit patched in at int32.
         Returns R [rows, n] int32 there, where block `members[pos]` owns
         the nch rows from pos * nch."""
-        stacked = np.concatenate([by_key[m][0] for m in members])
-        wide = np.nonzero((stacked.max(axis=1) > 32767)
-                          | (stacked.min(axis=1) < -32768))[0]
-        up16 = torch.from_numpy(stacked.astype(np.int16))
-        self.bytes_up += up16.numel() * 2
-        with on_device(device):
-            R = up16.to(device).to(torch.int32)  # [rows, n]
-            if wide.size:
-                full = torch.from_numpy(stacked[wide])
-                R.index_copy_(0, torch.from_numpy(wide).to(device),
-                              full.to(device))
-                self.bytes_up += full.numel() * 4 + wide.size * 8
+        with span("decode.upload"):
+            stacked = np.concatenate([by_key[m][0] for m in members])
+            wide = np.nonzero((stacked.max(axis=1) > 32767)
+                              | (stacked.min(axis=1) < -32768))[0]
+            up16 = torch.from_numpy(stacked.astype(np.int16))
+            self.bytes_up += up16.numel() * 2
+            with on_device(device):
+                R = up16.to(device).to(torch.int32)  # [rows, n]
+                self.queue_waits += 1
+                if wide.size:
+                    full = torch.from_numpy(stacked[wide])
+                    R.index_copy_(0, torch.from_numpy(wide).to(device),
+                                  full.to(device))
+                    self.queue_waits += 2
+                    self.bytes_up += full.numel() * 4 + wide.size * 8
+        with on_device(device), span("decode.layers"):
             for li in range(len(orders) - 1, -1, -1):
                 base_off = int(orders[:li].sum())
                 order = int(orders[li])
@@ -338,6 +358,7 @@ class TorchDecoder:
                         np.stack(crows).reshape(m * u, npu)).to(device)
                     rs = torch.from_numpy(
                         np.repeat(np.asarray(rsv, np.int32), u)).to(device)
+                    self.queue_waits += 3
                     sel = R.index_select(0, idx)           # [m, n]
                     seg = sel[:, : u * ns].reshape(m * u, ns).contiguous()
                     sel[:, : u * ns] = synthesize_rows(seg, c, rs).reshape(
@@ -409,37 +430,42 @@ class TorchDecoder:
         """Decode a corpus of .lnn streams with the reconstruction rows of
         ALL streams pooled into shared launches (grouped by preset and
         channel count). Returns one channel list per stream."""
-        if len(datas) > 1:
-            # streams parse independently; the native payload unpack runs
-            # without the GIL
-            with ThreadPoolExecutor(
-                    max_workers=min(len(datas), os.cpu_count() or 1)) as ex:
-                parsed = list(ex.map(self._parse_stream, datas))
-        else:
-            parsed = [self._parse_stream(d) for d in datas]
-        classes = {}
-        for si, (header, _orders, _blocks) in enumerate(parsed):
-            # the sample width sets the download width, so it is part of
-            # the pooling key
-            key = (header.preset, header.num_channels,
-                   header.bits_per_sample)
-            classes.setdefault(key, []).append(si)
-        results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
-        for sis in classes.values():
-            streams = [(si,) + parsed[si] for si in sis]
-            if native.available():
-                groups = self._synthesize_pooled_rows(streams)
-                for si in sis:
-                    header, _orders, blocks = parsed[si]
-                    results[si] = self._assemble_rows(
-                        header, blocks, groups, si)
-            else:
-                planes = self._synthesize_pooled(streams)
-                for si in sis:
-                    header, _orders, blocks = parsed[si]
-                    results[si] = self._assemble(header, blocks, planes, si)
-        self.header = parsed[-1][0] if parsed else None
-        return results
+        with span("decode"):
+            with span("decode.parse"):
+                if len(datas) > 1:
+                    # streams parse independently; the native payload
+                    # unpack runs without the GIL
+                    with ThreadPoolExecutor(max_workers=min(
+                            len(datas), os.cpu_count() or 1)) as ex:
+                        parsed = list(ex.map(self._parse_stream, datas))
+                else:
+                    parsed = [self._parse_stream(d) for d in datas]
+            classes = {}
+            for si, (header, _orders, _blocks) in enumerate(parsed):
+                # the sample width sets the download width, so it is part
+                # of the pooling key
+                key = (header.preset, header.num_channels,
+                       header.bits_per_sample)
+                classes.setdefault(key, []).append(si)
+            results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
+            for sis in classes.values():
+                streams = [(si,) + parsed[si] for si in sis]
+                if native.available():
+                    groups = self._synthesize_pooled_rows(streams)
+                    with span("decode.assemble"):
+                        for si in sis:
+                            header, _orders, blocks = parsed[si]
+                            results[si] = self._assemble_rows(
+                                header, blocks, groups, si)
+                else:
+                    planes = self._synthesize_pooled(streams)
+                    with span("decode.assemble"):
+                        for si in sis:
+                            header, _orders, blocks = parsed[si]
+                            results[si] = self._assemble(
+                                header, blocks, planes, si)
+            self.header = parsed[-1][0] if parsed else None
+            return results
 
     def decode_whole(self, data: bytes) -> List[np.ndarray]:
         return self.decode_many([data])[0]
