@@ -54,6 +54,13 @@ Phases (any failure raises and the script exits non-zero):
      forced on the card; the corpus encode in 5 alternating pairs of the
      two (multiples, sizes within 0.1 %, blocks that differ, every stream
      lossless);
+  4b. the residual pass: unit_residual_select's launches in one
+     128-block batch at presets 7 and 0 (one a layer: 3 and 2), then the
+     preset-7 layer-2 call (1,024 rows, n 10240, order 128) against its
+     plain version (picks, residuals and coefficients bit for bit where
+     the picks agree, losses within UNIT_RESIDUAL_RTOL) and timed beside
+     the plain version on the card's routes (the pass it replaced), on
+     the loop route, and its bound;
   5. decode groups: every (rows, ns, npu) launch of that decode, recorded
      in a second decode, checked bit for bit against the plain version and
      timed (CUDA events) beside its bound; then one decode under
@@ -453,6 +460,7 @@ def main_path_phase(tracks):
 TRACE_KERNELS = {"levinson_durbin": "levinson_kernel",
                  "quantize_coefficients": "quantize_kernel",
                  "predict_dense": "predict_kernel",
+                 "unit_residual_select": "unit_residual_kernel",
                  "synthesize_rows": "synth_rows_kernel"}
 
 
@@ -664,25 +672,53 @@ def cross_device_phase() -> None:
 
 # -- the encode's serial loops as kernels (analysis_scans.cu) -----------------
 
+def unit_residual_plain(x, params, log2u, loop=True):
+    """AS.unit_residual_select's call through its plain version on the
+    loop route (the sums the kernel repeats), or with loop=False on the
+    card's routes (the pass before the kernel), in the wrapper's
+    layout."""
+    ridges, per_ridge, n = x.shape
+    units = [1 << v for v in log2u]
+    real = A.unit_forward
+    if loop:
+        A.unit_forward = A._unit_forward_loop
+    try:
+        out = A._unit_residual_select_plain(
+            x, [p.reshape(ridges, per_ridge, u, -1)
+                for p, u in zip(params, units)], units)
+    finally:
+        A.unit_forward = real
+    return tuple(t.reshape((ridges * per_ridge,) + tuple(t.shape[2:]))
+                 for t in out)
+
+
 # The batched encode's kernels (the byte-exact fit's quantizer,
-# "quantize_layer", is the fourth of AS.KERNELS), the wrapper the encode
+# "quantize_layer", is the last of AS.KERNELS), the wrapper the encode
 # calls for each, and each wrapper's plain version.
-MAIN_SCANS = ("levinson_durbin", "quantize_coefficients", "predict_dense")
+MAIN_SCANS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
+              "unit_residual_select")
 _SCAN_WRAPPER = {"levinson_durbin": "levinson_durbin",
                  "quantize_coefficients": "quantize_layers",
                  "predict_dense": "predict_dense",
+                 "unit_residual_select": "unit_residual_select",
                  "quantize_layer": "quantize_layers_exact"}
 _SCAN_PLAIN = {"levinson_durbin": A._levinson_durbin_plain,
                "quantize_coefficients": A._quantize_layers_plain,
                "predict_dense": I._predict_dense_plain,
+               "unit_residual_select": unit_residual_plain,
                "quantize_layer": ED._quantize_layers_plain}
 # Where each kernel's loop stands in the JAX package: an XLA scan inside a
 # jitted stage (the byte-exact quantizer: an unrolled loop of the jitted
-# fit), not a Pallas kernel.
+# fit; the residual pass: fit_layer's loop over the unit counts), not a
+# Pallas kernel.
 _SCAN_REPLACES = {"levinson_durbin": "linne_tpu/ops/analysis.py:141",
                   "quantize_coefficients": "linne_tpu/ops/analysis.py:426",
                   "predict_dense": "linne_tpu/ops/intops.py:87",
+                  "unit_residual_select": "linne_tpu/ops/analysis.py:348",
                   "quantize_layer": "linne_tpu/ops/exact_device.py:429"}
+# The residual pass's loss against its plain version's: the same terms
+# summed in another order
+UNIT_RESIDUAL_RTOL = 1e-12
 # The recursion's tolerance against its plain version. Both round every
 # operation alike but sum a . s in other orders, so they differ by the
 # rounding of those sums, which the recursion carries on. On rows that the
@@ -733,6 +769,31 @@ def check_levinson(args, got, what, exact_rows=()):
     return rel_max, abs_max, int(det.sum()), int(det.numel())
 
 
+def check_unit_residual(args, got, what):
+    """The residual pass against its plain version on the loop route: the
+    same pick, residual and coefficients bit for bit on every row whose
+    pick agrees, a pick apart only where the two losses lie within
+    UNIT_RESIDUAL_RTOL, the losses within it (NaN in the same places).
+    Returns (largest relative loss difference, largest absolute, rows
+    whose pick agrees, rows)."""
+    log2u, flat, res, loss = got
+    wl2, wflat, wres, wloss = _SCAN_PLAIN["unit_residual_select"](*args)
+    agree = log2u == wl2
+    fin = ~torch.isnan(wloss)
+    require(torch.equal(torch.isnan(loss), ~fin),
+            f"unit_residual_select NaN losses differ at {what}")
+    diff = (loss - wloss).abs()
+    rel = torch.where(fin, diff / wloss.abs().clamp(min=1e-300), 0.0)
+    require(bool(torch.all(rel <= UNIT_RESIDUAL_RTOL)),
+            f"unit_residual_select loss off by {float(rel.max()):.3g} at "
+            f"{what}")
+    require(torch.equal(bits(res[agree]), bits(wres[agree]))
+            and torch.equal(bits(flat[agree]), bits(wflat[agree])),
+            f"unit_residual_select residual not bit-equal at {what}")
+    err = float(torch.where(fin, diff, 0.0).max()) if loss.numel() else 0.0
+    return float(rel.max()), err, int(agree.sum()), int(agree.numel())
+
+
 def check_scan(name, args, got, what, exact_rows=()):
     """One kernel call's outputs against the plain version. Returns (largest
     relative, largest absolute difference, determined rows, rows); the
@@ -740,6 +801,8 @@ def check_scan(name, args, got, what, exact_rows=()):
     (float64 as int64 bits: both ran on the card, NaN bits included)."""
     if name == "levinson_durbin":
         return check_levinson(args, got, what, exact_rows)
+    if name == "unit_residual_select":
+        return check_unit_residual(args, got, what)
     check_exact(name, got, _SCAN_PLAIN[name](*args), what)
     return 0.0, 0.0, 0, 0
 
@@ -995,6 +1058,21 @@ def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles=0.0):
             16 * rows if exact else 0)
         chain = max(orders) * QUANT_CHAIN_STEPS * dadd_cycles
         t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
+    elif name == "unit_residual_select":
+        # a multiply and an add a tap, sample and candidate (the winner's
+        # second pass not counted); the input once (once for every ridge
+        # where they share it), the coefficients, the winners' outputs;
+        # the chain: the winner's longest sum of products
+        x, params, log2u = args
+        ridges, per_ridge, n = x.shape
+        rows = ridges * per_ridge
+        order = params[0].shape[1]
+        ops = 2 * rows * n * sum(order >> v for v in log2u)
+        nbytes = 8 * (n * (per_ridge if x.stride(0) == 0 else rows)
+                      + rows * order * len(params)
+                      + rows * (n + order + 1)) + 4 * rows
+        chain = 2 * order * dadd_cycles
+        t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
     else:
         x, coefs, log2u = args[0], args[1], args[2]
         rows, n = x.shape
@@ -1056,6 +1134,66 @@ def scan_calls_phase(tracks, clock_hz, dadd_cycles, ddiv_cycles) -> dict:
     return {name: time_scan_calls(name, calls[name], clock_hz, dadd_cycles,
                                   ddiv_cycles, "64-block batch")
             for name in MAIN_SCANS}
+
+
+def unit_residual_phase(tracks, clock_hz, dadd_cycles) -> None:
+    """The residual pass in one 128-block batch of the corpus (the
+    benchmark's batch): its launches a batch at presets 7 and 0 (one a
+    layer: 3 and 2), then the preset-7 layer-2 call (1,024 rows of 10,240
+    samples, order 128, 8 candidate splits) checked against its plain
+    version and timed beside the pass it replaced (the plain version on
+    the card's routes), the loop route and its bound."""
+    blocks = batch_blocks(tracks, 128)
+    calls, launches = [], {}
+    real = AS.unit_residual_select
+
+    def rec(*args):
+        calls.append(clone_args(args))
+        return real(*args)
+
+    for preset in (7, 0):
+        enc = TorchEncoder(batch_blocks=128, device="cuda")
+        enc.set_encode_parameter(param(preset))
+        analyze = enc._analyze_fn(SPB)[0]
+        analyze(blocks)  # warm
+        torch.cuda.synchronize()
+        before = AS.KERNEL_LAUNCHES["unit_residual_select"]
+        AS.unit_residual_select = rec if preset == 7 else real
+        try:
+            analyze(blocks)
+        finally:
+            AS.unit_residual_select = real
+        torch.cuda.synchronize()
+        launches[preset] = AS.KERNEL_LAUNCHES["unit_residual_select"] - before
+        layers = len(PRESETS[preset].layer_num_params)
+        require(launches[preset] == layers,
+                f"preset {preset}: {launches[preset]} unit_residual_select "
+                f"launches in a batch of {layers} layers")
+    args = calls[1]
+    x, params, log2u = args
+    shape = (tuple(x.shape), len(params), params[0].shape[1])
+    rel, _, agree, rows = check_unit_residual(args, real(*args), shape)
+    ms = min(kernel_ms(lambda: real(*args), reps=5) for _ in range(3))
+    plain = {}
+    for loop in (False, True):
+        unit_residual_plain(x, params, log2u, loop)  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        unit_residual_plain(x, params, log2u, loop)
+        end.record()
+        torch.cuda.synchronize()
+        plain[loop] = start.elapsed_time(end)
+    b_ms, b_by, chain_ms = scan_bound("unit_residual_select", args, clock_hz,
+                                      dadd_cycles)
+    print(f"unit_residual_select: launches a 128-block batch {launches} "
+          f"(preset: launches, one a layer); preset-7 layer 2 {shape}: "
+          f"kernel {ms:.4f} ms, plain torch on the card's routes (the pass "
+          f"it replaced) {plain[False]:.3f} ms, on the loop route "
+          f"{plain[True]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{100 * b_ms / ms:.1f} % of it reached), chain bound "
+          f"{chain_ms:.4f} ms; picks agree on {agree} of {rows} rows, "
+          f"losses within {rel:.3g}")
 
 
 def clone_args(args):
@@ -1121,7 +1259,10 @@ def time_scan_calls(name, calls, clock_hz, dadd_cycles, ddiv_cycles,
     det = (f"; levinson off by at most {r['rel']:.3g} of the row's "
            f"largest |value| on {r['det']} of {r['rows']} rows (the "
            f"determined ones), {r['max_abs_err']:.3g} absolute"
-           if name == "levinson_durbin" else ", bit-equal")
+           if name == "levinson_durbin" else
+           f"; picks agree on {r['det']} of {r['rows']} rows (residuals "
+           f"bit-equal there), losses within {r['rel']:.3g}"
+           if name == "unit_residual_select" else ", bit-equal")
     chain = (f", chain bound {r['chain_ms']:.4f} ms "
              f"({100 * r['chain_ms'] / r['ms']:.1f} % of it reached)"
              if r["chain_ms"] else "")
@@ -1134,23 +1275,26 @@ def time_scan_calls(name, calls, clock_hz, dadd_cycles, ddiv_cycles,
 
 
 class PlainScans:
-    """Within its `with`, the encode's three loops take their plain torch
+    """Within its `with`, the encode's loops take their plain torch
     versions on the card too (the public functions are swapped for them),
     so that a run can be compared with the kernels'."""
 
     def __init__(self, on: bool = True):
         self.on = on
-        self._real = (A.levinson_durbin, A.quantize_layers, I._predict_dense)
+        self._real = (A.levinson_durbin, A.quantize_layers, I._predict_dense,
+                      A.unit_residual_select)
 
     def __enter__(self):
         if self.on:
             A.levinson_durbin = A._levinson_durbin_plain
             A.quantize_layers = A._quantize_layers_plain
             I._predict_dense = I._predict_dense_plain
+            A.unit_residual_select = A._unit_residual_select_plain
         return self
 
     def __exit__(self, *exc):
-        A.levinson_durbin, A.quantize_layers, I._predict_dense = self._real
+        (A.levinson_durbin, A.quantize_layers, I._predict_dense,
+         A.unit_residual_select) = self._real
 
 
 def stage_ops(blocks) -> dict:
@@ -1228,7 +1372,7 @@ def scan_pairs_phase(tracks) -> None:
               f"{wall_ms:.1f} ms, device {dev_ms:.2f} ms in {dev_launches} "
               f"launches ({100 * dev_ms / wall_ms:.1f} % busy); largest: "
               + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top[:5]))
-    print("scans, torch ops the three loops dispatched in one batch "
+    print("scans, torch ops the loops dispatched in one batch "
           "(plain - kernels): " + ", ".join(
               f"{k} {ops[True][k] - ops[False].get(k, 0)}"
               for k in ops[True]))
@@ -3202,6 +3346,7 @@ def main() -> int:
     tracks = corpus()
     launches, scan_launches, datas, plain_multiple = main_path_phase(tracks)
     scans = scan_calls_phase(tracks, clock_hz, dadd, ddiv)
+    unit_residual_phase(tracks, clock_hz, dadd)
     scan_pairs_phase(tracks)
     group_err = decode_groups_phase(datas)
     decode_profile_phase(datas)

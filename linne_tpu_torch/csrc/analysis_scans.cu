@@ -21,6 +21,10 @@
 //                       (linne_tpu/ops/intops.py:87, scan at :122): the
 //                       masked full-order int32 FIR with per-unit
 //                       passthrough, register-tiled (below).
+//   unit_residual_kernel replaces fit_layer's loop over the unit counts
+//                       (linne_tpu/ops/analysis.py:348): every candidate
+//                       split's residual and loss and the first-minimum
+//                       pick of a layer, one launch a layer (below).
 //
 // Exactness. The quantizer and the predict cascade are bit-equal to their
 // plain torch versions (linne_tpu_torch/ops/analysis.py
@@ -926,6 +930,295 @@ __global__ void __launch_bounds__(kPdThreads)
   SPLIT_END();
 }
 
+// -- unit_residual_select ----------------------------------------------------
+//
+// The residual pass of fit_layer's unit-count sweep. For each candidate
+// unit count u of a layer of `order` taps (npu = order / u taps a unit,
+// ns = n / u samples), the residual of every sample t >= 1,
+//   r[t] = x[t] + sum_{j < npu} c[(t / ns) * npu + j] * x[t - npu + j]
+// (r[0] = x[0]; x is 0 before t = 0, and a unit's context reaches back
+// into the unit before it), the candidate's loss sum_{t >= 1} |r[t]| / n,
+// and the first minimum over the candidates in order (strict <: a tie
+// keeps the earlier split, a NaN loss never wins and a NaN first loss is
+// never replaced); then the winner's residual row, its coefficients, its
+// log2 u and its loss. It replaces the candidate loop of
+// ops/analysis.py:fit_layer (per candidate unit_forward's loop, FFT or
+// matrix-unit route, then abs, sum and four where on [ridges, blocks,
+// channels, n] tensors), which the JAX package leaves to XLA
+// (linne_tpu/ops/analysis.py fit_layer): it replaces no Pallas kernel.
+//
+// Exactness. Each prediction is the loop route's sum, tap by tap from
+// j = 0: acc = +0, acc = __dadd_rn(acc, __dmul_rn(c, x)), then
+// __dadd_rn(x[t], acc); so every residual is bit-equal to
+// ops/analysis.py:_unit_forward_loop's. The loss is summed in another
+// order than torch.sum (a thread's outputs in order, the lanes of a warp
+// in a butterfly, then the warps and chunks in order): the same bits for
+// a row wherever it sits in the batch, within rounding of the plain
+// version's, so only a near-tie pick can differ from it.
+//
+// Bound. The multiply-adds, n * npu a row and candidate (255 a sample
+// summed over the candidates of order 128), two FP64 instructions each
+// (a product then a sum: the loop route rounds the product, so no FMA),
+// at the FP64 issue rate; the bytes, a row in and its residual out, take
+// about a fifteenth of that time at order 128.
+//
+// Design. One CTA a row. The row is staged in shared memory once with
+// cp.async, after `order` samples of history, beside every candidate's
+// coefficients; a row longer than the shared memory a CTA keeps
+// (kUrSmemBudget, so that two CTAs share an SM) is taken in chunks, each
+// staged with its own history. Pass 1: a thread takes tiles of kUrP
+// consecutive outputs and runs the taps eight at a time from a window of
+// kUrP + 7 samples in registers: each coefficient is a shared-memory
+// broadcast, each sample is loaded once for eight taps, and as kUrP is
+// odd, the lanes' windows, kUrP doubles apart, fall in distinct banks.
+// The tiles cut the row at the units of the finest candidate split, so
+// that a tile lies in one unit of every candidate, and they are the same
+// for every candidate, and so is the order in which the loss adds up the
+// outputs: candidates with equal residuals have equal losses, and the
+// first of them wins, as in the plain version. (kUrP = 9 wastes 1 of 81
+// outputs on the 80-sample units of a 10240-sample block in 128 units.)
+// A thread adds up |r| over its outputs; each warp's sum of a candidate
+// goes to shared memory, with no barrier between the candidates, so that
+// a thread idle at the end of one candidate's tiles starts on the next.
+// One thread then folds the candidates' losses.
+// Pass 2 computes the winner's residual again and writes it over the
+// staged samples, in rounds of tiles from the end of the row back: a
+// round's outputs read only samples at or before their own, which the
+// rounds after it (written before it) do not reach. The row then leaves
+// in one coalesced copy.
+//
+// Measured (chip_smoke.py phase 4b; NVIDIA H100 80GB HBM3 at 700 W): the
+// preset-7 order-128 call of a 128-block batch (1,024 rows of 10,240
+// samples, 8 candidates) 0.653 ms against 11.49 ms for the torch pass it
+// replaced and a 0.320 ms FP64 issue bound; a batch's three calls ~0.9
+// ms, the order-4 and order-16 ones bound by staging their rows.
+
+constexpr int kUrP = 9;            // outputs a tile (odd: no bank conflicts)
+constexpr int kUrThreads = 256;    // the most threads a CTA
+constexpr int kUrMaxCands = 8;     // unit counts 1, 2, 4, ..., 128
+constexpr int kUrPad = kUrP + 1;   // samples a tile may read past a chunk
+constexpr int kUrSmemBudget = 110 * 1024;  // bytes a CTA: two an SM
+
+struct UrCands {
+  const double* params[kUrMaxCands];  // candidate i: [rows, order]
+  int log2u[kUrMaxCands];
+  int count;
+};
+
+// The tiles of the chunk [cs, ce), for units of ns samples: tile i holds
+// the outputs [start, min(start + kUrP, end)) of one unit, the chunk's
+// first unit (or its part of one) first, then whole units of `full`
+// tiles each; a tile of a unit that the chunk's end cuts may start at or
+// past `end`, and then holds nothing.
+struct UrTiles {
+  int cs, ce, ns, first_end, first, full, count;
+  __device__ UrTiles(int cs_, int ce_, int ns_) : cs(cs_), ce(ce_), ns(ns_) {
+    first_end = min(ce, (cs / ns + 1) * ns);
+    first = (first_end - cs + kUrP - 1) / kUrP;
+    full = (ns + kUrP - 1) / kUrP;
+    count = first + (ce - first_end + ns - 1) / ns * full;
+  }
+  __device__ __forceinline__ void at(int i, int& start, int& end) const {
+    if (i < first) {
+      start = cs + i * kUrP;
+      end = first_end;
+      return;
+    }
+    const int j = i - first;
+    const int unit = j / full;
+    const int unit_start = first_end + unit * ns;
+    start = unit_start + (j - unit * full) * kUrP;
+    end = min(ce, unit_start + ns);
+  }
+};
+
+// acc[p] += c[k] * w[k + p] for k < K, tap by tap, with w = xw[0, kUrP +
+// K - 1) and c[0, K) read from shared memory.
+template <int K>
+__device__ __forceinline__ void ur_taps(const double* xw, const double* c,
+                                        double (&acc)[kUrP]) {
+  double w[kUrP + K - 1];
+#pragma unroll
+  for (int q = 0; q < kUrP + K - 1; ++q) w[q] = xw[q];
+  double cc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) cc[k] = c[k];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int p = 0; p < kUrP; ++p) {
+      acc[p] = __dadd_rn(acc[p], __dmul_rn(cc[k], w[k + p]));
+    }
+  }
+}
+
+// r[p]: the residual of output start + p, from xw = the staged x[start -
+// npu] and c = its unit's npu taps.
+__device__ __forceinline__ void ur_tile(const double* xw, const double* c,
+                                        int npu, double (&r)[kUrP]) {
+  double acc[kUrP];
+#pragma unroll
+  for (int p = 0; p < kUrP; ++p) acc[p] = 0.0;
+  int j = 0;
+  for (; j + 8 <= npu; j += 8) ur_taps<8>(xw + j, c + j, acc);
+  if (j + 4 <= npu) {
+    ur_taps<4>(xw + j, c + j, acc);
+    j += 4;
+  }
+  if (j + 2 <= npu) {
+    ur_taps<2>(xw + j, c + j, acc);
+    j += 2;
+  }
+  if (j < npu) ur_taps<1>(xw + j, c + j, acc);
+#pragma unroll
+  for (int p = 0; p < kUrP; ++p) r[p] = __dadd_rn(xw[npu + p], acc[p]);
+}
+
+// buf[i] = x[cs - hist + i] for i < hist + ce - cs (0 before the row's
+// start), then a barrier.
+__device__ __forceinline__ void ur_stage(double* buf, const double* xr,
+                                         int cs, int ce, int hist) {
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(buf));
+  for (int i = threadIdx.x; i < hist + ce - cs; i += blockDim.x) {
+    const int g = cs - hist + i;
+    if (g >= 0) {
+      cp_async8(sbase + 8u * i, xr + g);
+    } else {
+      buf[i] = 0.0;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The sum of v over the warp, the same bits on every lane.
+__device__ __forceinline__ double ur_warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = __dadd_rn(v, __shfl_xor_sync(kFullMask, v, off));
+  }
+  return v;
+}
+
+// Row `row` of x starts at x + (row / per_ridge) * ridge_stride + (row %
+// per_ridge) * n. Shared memory: the staged chunk (`order` samples of
+// history, `chunk` samples, kUrPad more), the candidates' coefficients
+// [count][order] and each warp's loss sums [count][warps].
+__global__ void __launch_bounds__(kUrThreads, 2)
+    unit_residual_kernel(const double* __restrict__ x, int64_t ridge_stride,
+                         int64_t per_ridge, const UrCands cands, int order,
+                         int n, int chunk, double* __restrict__ res,
+                         double* __restrict__ flat, double* __restrict__ loss,
+                         int32_t* __restrict__ log2u) {
+  extern __shared__ double ur_sm[];
+  __shared__ int s_best;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int warps = threads >> 5, warp = tid >> 5, lane = tid & 31;
+  const int hist = order, count = cands.count;
+  double* const buf = ur_sm;
+  double* const coef = buf + hist + chunk + kUrPad;
+  double* const part = coef + count * order;
+  int fine = 0;  // the finest split's log2 u: its units cut the tiles
+  for (int c = 0; c < count; ++c) fine = max(fine, cands.log2u[c]);
+  const int64_t row = blockIdx.x;
+  const double* const xr =
+      x + (row / per_ridge) * ridge_stride + (row % per_ridge) * n;
+  for (int i = tid; i < count * order; i += threads) {
+    const int c = i / order;
+    coef[i] = __ldg(cands.params[c] + row * order + (i - c * order));
+  }
+  for (int i = tid; i < count * warps; i += threads) part[i] = 0.0;
+  const int chunks = (n + chunk - 1) / chunk;
+
+  // pass 1: every candidate's loss, chunk by chunk
+  for (int k = 0; k < chunks; ++k) {
+    const int cs = k * chunk, ce = min(n, cs + chunk);
+    if (k) __syncthreads();  // every read of the chunk before is done
+    ur_stage(buf, xr, cs, ce, hist);
+    const UrTiles tiles(cs, ce, n >> fine);
+    for (int c = 0; c < count; ++c) {
+      const int npu = order >> cands.log2u[c], ns = n >> cands.log2u[c];
+      double s = 0.0;
+      for (int i = tid; i < tiles.count; i += threads) {
+        int start, end;
+        tiles.at(i, start, end);
+        if (start >= end) continue;
+        double r[kUrP];
+        ur_tile(buf + hist + (start - cs) - npu,
+                coef + c * order + (start / ns) * npu, npu, r);
+#pragma unroll
+        for (int p = 0; p < kUrP; ++p) {
+          if (p < end - start && start + p > 0) s = __dadd_rn(s, fabs(r[p]));
+        }
+      }
+      s = ur_warp_sum(s);
+      if (lane == 0) {
+        part[c * warps + warp] = __dadd_rn(part[c * warps + warp], s);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int best = 0;
+    double best_loss = 0.0;
+    for (int c = 0; c < count; ++c) {
+      double s = 0.0;
+      for (int w = 0; w < warps; ++w) s = __dadd_rn(s, part[c * warps + w]);
+      const double l = __ddiv_rn(s, static_cast<double>(n));
+      if (c == 0 || l < best_loss) {
+        best_loss = l;
+        best = c;
+      }
+    }
+    s_best = best;
+    loss[row] = best_loss;
+    log2u[row] = cands.log2u[best];
+  }
+  __syncthreads();
+  const int best = s_best;
+  for (int i = tid; i < order; i += threads) {
+    flat[row * order + i] = coef[best * order + i];
+  }
+
+  // pass 2: the winner's residual over the staged samples, from the last
+  // chunk (still staged) back to the first
+  const int npu = order >> cands.log2u[best], ns = n >> cands.log2u[best];
+  const double* const cb = coef + best * order;
+  double* const out = res + row * n;
+  for (int k = chunks - 1; k >= 0; --k) {
+    const int cs = k * chunk, ce = min(n, cs + chunk);
+    if (k != chunks - 1) {
+      __syncthreads();  // the copy of the chunk after it is done
+      ur_stage(buf, xr, cs, ce, hist);
+    }
+    const UrTiles tiles(cs, ce, n >> fine);
+    for (int round = (tiles.count + threads - 1) / threads - 1; round >= 0;
+         --round) {
+      const int i = round * threads + tid;
+      int start = 0, end = 0;
+      double r[kUrP];
+      if (i < tiles.count) {
+        tiles.at(i, start, end);
+        if (start < end) {
+          ur_tile(buf + hist + (start - cs) - npu, cb + (start / ns) * npu,
+                  npu, r);
+        } else {
+          end = start;
+        }
+      }
+      __syncthreads();  // every read of the round's samples is done
+#pragma unroll
+      for (int p = 0; p < kUrP; ++p) {
+        if (p < end - start && start + p > 0) {
+          buf[hist + (start - cs) + p] = r[p];
+        }
+      }
+    }
+    __syncthreads();
+    for (int t = cs + tid; t < ce; t += threads) out[t] = buf[hist + t - cs];
+  }
+}
+
 // A dependent chain of n __ddiv_rn in one warp (a <- x / a stays near
 // sqrt(x)), timed with clock64: the card's divide latency is
 // (cycles(n2) - cycles(n1)) / (n2 - n1). The recursion's chain bound
@@ -1076,5 +1369,63 @@ extern "C" int linne_predict_dense(const int32_t* x, const int32_t* coefs,
   predict_kernel<<<static_cast<unsigned>(ctas), kPdThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       x, coefs, log2u, rshift, out, tiles, n, order, coef_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: row r of n float64 samples at x + (r / per_ridge) * ridge_stride +
+// (r % per_ridge) * n (ridge_stride >= 0, in doubles; 0 for an expanded
+// input); params[i] [rows, order] float64, candidate i's coefficients
+// (u_i units of order / u_i taps, reversed layout), log2u[i] = log2 u_i,
+// count (1..8) candidates in the order of the first-minimum fold; out: res
+// [rows, n], flat [rows, order], loss [rows] float64 and log2u_out [rows]
+// int32 of each row's winner. 1 <= order <= 128; u_i divides order and n.
+extern "C" int linne_unit_residual_select(
+    const double* x, int64_t ridge_stride, int64_t per_ridge,
+    const void* const* params, const int* log2u, int count, int order, int n,
+    int64_t rows, double* res, double* flat, double* loss,
+    int32_t* log2u_out, void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || per_ridge < 1 || ridge_stride < 0 ||
+      count < 1 || count > kUrMaxCands || order < 1 || order > kMaxOrder ||
+      n < 1 || n > (1 << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  UrCands cands{};
+  cands.count = count;
+  for (int i = 0; i < count; ++i) {
+    const int l2 = log2u[i];
+    if (l2 < 0 || l2 > 7 || (order >> l2) << l2 != order ||
+        (n >> l2) << l2 != n) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cands.params[i] = static_cast<const double*>(params[i]);
+    cands.log2u[i] = l2;
+  }
+  // the plan: a thread per tile up to kUrThreads; the longest chunk that
+  // keeps the CTA's shared memory within kUrSmemBudget, in chunks of
+  // equal length
+  const int tiles = (n + kUrP - 1) / kUrP;
+  const int threads = min(kUrThreads, max(32, (tiles + 31) / 32 * 32));
+  const int fixed = count * order + count * (threads / 32);  // doubles
+  const int cap = kUrSmemBudget / 8 - fixed - order - kUrPad;
+  const int chunks = (n + cap - 1) / cap;
+  const int chunk = (n + chunks - 1) / chunks;
+  const size_t smem = 8 * static_cast<size_t>(order + chunk + kUrPad + fixed);
+  // above 48 KB only once the kernel allows it, on each device
+  static bool allowed[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    err = cudaFuncSetAttribute(unit_residual_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kUrSmemBudget);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = true;
+  }
+  unit_residual_kernel<<<static_cast<unsigned>(rows), threads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      x, ridge_stride, per_ridge, cands, order, n, chunk, res, flat, loss,
+      log2u_out);
   return static_cast<int>(cudaGetLastError());
 }

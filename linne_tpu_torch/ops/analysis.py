@@ -5,11 +5,13 @@ Every level of the reference's nested per-block loops (ridge candidates x
 layers x unit counts x units; reference call stack:
 LINNENetwork_SetUnitsAndParameters, linne_network.c:582-630) is a batch
 dimension of one tensor computation over [ridges, blocks, channels, ...].
-The recursions over taps or orders (`lax.scan` in the reference) are, on
-a CUDA tensor, one launch each of a hand-written kernel
-(ops/analysis_scans.py, csrc/analysis_scans.cu) and, on a CPU tensor,
-their plain versions here: Python loops of batched tensor ops
-(`_levinson_durbin_plain`, `_quantize_coefficients_plain`).
+The recursions over taps or orders (`lax.scan` in the reference), and
+the residual pass of a layer's unit-count sweep (every candidate's
+residual, loss and the first-minimum pick), are, on a CUDA tensor, one
+launch each of a hand-written kernel (ops/analysis_scans.py,
+csrc/analysis_scans.cu) and, on a CPU tensor, their plain versions here:
+Python loops of batched tensor ops (`_levinson_durbin_plain`,
+`_quantize_coefficients_plain`, `_unit_residual_select_plain`).
 
 Routes, as in the reference: a lag scan (one pass over the signal per lag
 or tap) for few lags, an FFT (torch.fft) at 32 and above, and the
@@ -22,8 +24,9 @@ same quantity; only float rounding differs, which can shift a chosen
 coefficient, never losslessness.
 
 Winners are picked with first-minimum semantics, as the reference's
-strict-< selection: a running `loss < best` fold over unit candidates and
-`torch.argmin` (first index on ties) over ridges.
+strict-< selection: a running `loss < best` fold over unit candidates
+(`unit_residual_select`) and `torch.argmin` (first index on ties) over
+ridges.
 """
 
 from __future__ import annotations
@@ -240,6 +243,17 @@ def unit_forward(
             return _unit_forward_matmul(signal, params, num_units)
     if npu >= _FFT_AUTOCORR_MIN_LAGS:
         return _unit_forward_fft(signal, params, num_units)
+    return _unit_forward_loop(signal, params, num_units)
+
+
+def _unit_forward_loop(signal: torch.Tensor, params: torch.Tensor,
+                       num_units: int) -> torch.Tensor:
+    """unit_forward as a loop over the taps, each product rounded and added
+    to the prediction in tap order: the route of few taps, and the sums
+    the `unit_residual_select` kernel repeats bit for bit."""
+    n = signal.shape[-1]
+    npu = params.shape[-1]
+    ns = n // num_units
     xp = F.pad(signal, (npu, 0))
     pred = torch.zeros_like(signal)
     for j in range(npu):
@@ -331,18 +345,58 @@ def fit_layer(signal: torch.Tensor, order: int, regular_term,
               windows: dict | None = None):
     """Unit-count search + fit for one layer over a batched signal.
 
-    Evaluates every candidate split, scores mean |residual| excluding sample
-    0 (linne_network.c:319-337), picks the first minimum. Returns
-    (log2_units[...], flat_params[..., order], residual[..., n], loss[...]).
-    `windows` keeps the Welch windows (see _window).
+    Fits every candidate split, scores mean |residual| excluding sample
+    0 (linne_network.c:319-337), picks the first minimum
+    (`unit_residual_select`). Returns (log2_units[...], flat_params[...,
+    order], residual[..., n], loss[...]). `windows` keeps the Welch
+    windows (see _window).
     """
+    units = candidate_units(order, signal.shape[-1])
+    params = [fit_unit_lpc(signal, u, order // u, regular_term, windows)
+              for u in units]
+    return unit_residual_select(signal, params, units)
+
+
+def unit_residual_select(signal: torch.Tensor, params: Sequence[torch.Tensor],
+                         units: Sequence[int]):
+    """The residual pass of a layer's unit-count sweep: each candidate
+    split's residual (unit_forward of signal [..., n] by params[i]
+    [..., units[i], order / units[i]], fit_unit_lpc's layout), its loss
+    (sum of |residual| without sample 0, over n) and the first minimum
+    over the candidates in the given order (strict <: ties keep the
+    earlier split, a NaN loss never wins nor is replaced). Returns
+    (log2_units[...] int32, flat_params[..., order], residual[..., n],
+    loss[...]) of the winners. A CPU tensor takes
+    `_unit_residual_select_plain`; any other launches the kernel once (its
+    residuals are `_unit_forward_loop`'s bits, its loss agrees to
+    rounding) or raises. The leading axis (the ridges) may be expanded:
+    it is read, not copied."""
+    if signal.device.type == "cpu":
+        return _unit_residual_select_plain(signal, params, units)
+    n = signal.shape[-1]
+    batch_shape = tuple(signal.shape[:-1])
+    order = params[0].shape[-1] * units[0]
+    x = signal.reshape((batch_shape[0] if batch_shape else 1, -1, n))
+    rows = x.shape[0] * x.shape[1]
+    log2u, flat, res, loss = analysis_scans.unit_residual_select(
+        x, [p.expand(batch_shape + tuple(p.shape[-2:])).reshape(rows, order)
+            for p in params],
+        [(u - 1).bit_length() for u in units])
+    return (log2u.reshape(batch_shape), flat.reshape(batch_shape + (order,)),
+            res.reshape(batch_shape + (n,)), loss.reshape(batch_shape))
+
+
+def _unit_residual_select_plain(signal: torch.Tensor,
+                                params: Sequence[torch.Tensor],
+                                units: Sequence[int]):
+    """unit_residual_select as batched torch ops, a Python loop over the
+    candidates: the kernel's plain version."""
     n = signal.shape[-1]
     best_loss = best_flat = best_res = best_log2u = None
-    for u in candidate_units(order, n):
-        params = fit_unit_lpc(signal, u, order // u, regular_term, windows)
-        res = unit_forward(signal, params, u)
+    for p, u in zip(params, units):
+        res = unit_forward(signal, p, u)
         loss = torch.sum(torch.abs(res[..., 1:]), dim=-1) / n
-        flat = params.reshape(tuple(params.shape[:-2]) + (order,))
+        flat = p.reshape(tuple(p.shape[:-2]) + (-1,))
         log2u = torch.full(loss.shape, (u - 1).bit_length(),
                            dtype=torch.int32, device=signal.device)
         if best_loss is None:

@@ -1,15 +1,18 @@
-"""The serial loops of the batched encode, and the byte-exact fit's
-quantizer, as CUDA kernels.
+"""The serial loops of the batched encode, its layer fits' residual pass,
+and the byte-exact fit's quantizer, as CUDA kernels.
 
 The JAX package runs three recursions of its default encode as
 `lax.scan` loops inside jitted stages (linne_tpu/ops/analysis.py
 `levinson_durbin`, `quantize_coefficients`; linne_tpu/ops/intops.py
-`_predict_dense`), and the byte-exact fit's quantizer as a loop over the
-taps (linne_tpu/ops/exact_device.py `_quantize_layer`). Eager torch would
-dispatch a dozen ops for every step of each; here each is one launch of a
-hand-written kernel (csrc/analysis_scans.cu). The plain torch versions
-stay in ops/analysis.py (`_levinson_durbin_plain`,
-`_quantize_coefficients_plain`, `_quantize_layers_plain`), ops/intops.py
+`_predict_dense`), the residual pass of each layer's unit-count sweep as
+XLA ops (linne_tpu/ops/analysis.py `fit_layer`: every candidate split's
+residual, its loss and the first-minimum pick), and the byte-exact fit's
+quantizer as a loop over the taps (linne_tpu/ops/exact_device.py
+`_quantize_layer`). Eager torch would dispatch a dozen ops for every step
+of each; here each is one launch of a hand-written kernel
+(csrc/analysis_scans.cu). The plain torch versions stay in
+ops/analysis.py (`_levinson_durbin_plain`, `_quantize_coefficients_plain`,
+`_quantize_layers_plain`, `_unit_residual_select_plain`), ops/intops.py
 (`_predict_dense_plain`) and ops/exact_device.py (`_quantize_layer_plain`,
 `_quantize_layers_plain`), whose public functions send a CPU tensor to the
 plain version and a CUDA tensor here. There is no fallback from one to the
@@ -26,7 +29,9 @@ for one layer), the byte-exact fit's as "quantize_layer"
 (`quantize_layers_exact`).
 
 The quantizer and the predict cascade are bit-equal to their plain
-versions. The recursion takes each step's numerator in Schur form (the
+versions, and so are the residual pass's residuals to the loop route's
+(ops/analysis.py `_unit_forward_loop`); its loss sums the same terms in
+another order. The recursion takes each step's numerator in Schur form (the
 forward and backward correlations updated elementwise, no sum), so it
 agrees with its plain version to rounding, deterministically and wherever
 a row sits in the batch.
@@ -42,7 +47,7 @@ from . import _kernels
 
 # the batched encoder's kernels, then the byte-exact fit's quantizer
 KERNELS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
-           "quantize_layer")
+           "unit_residual_select", "quantize_layer")
 
 # Launches of each kernel since import (or since a caller reset them);
 # incremented only where the kernel is launched.
@@ -55,6 +60,9 @@ KERNEL_MAX_ORDER = 128
 # The layers one quantizer launch takes (the format's presets have 2-3).
 QUANTIZE_MAX_LAYERS = 4
 
+# The candidate splits one residual pass takes: unit counts 1, 2, ..., 128.
+UNIT_MAX_CANDIDATES = 8
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
@@ -63,6 +71,8 @@ _SIGNATURES = {
     "quantize_layers": [_I, _P, _P, _P, _P, _P, _L, _P, _L, _L, _P, _P, _L,
                         _I, _I, _P],
     "predict_dense": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
+    "unit_residual_select": [_P, _L, _L, _P, _P, _I, _I, _I, _L, _P, _P, _P,
+                             _P, _P],
     "ddiv_probe": [ctypes.c_double, _I, _P, _P, _P],
 }
 _fns: dict = {}
@@ -302,6 +312,70 @@ def predict_dense(x: torch.Tensor, coefs: torch.Tensor, log2u: torch.Tensor,
                 log2u.data_ptr(), rshift.data_ptr(), out.data_ptr(), rows, n,
                 order, coefs.stride(0))
     return out
+
+
+def unit_residual_select(x: torch.Tensor, params, log2u):
+    """x [ridges, rows, n] float64 (each row's samples contiguous, the rows
+    of a ridge at stride n, the ridges at any stride: 0 for an expanded
+    input, which is read and not copied); params: 1..8 candidates [ridges
+    * rows, order] float64 contiguous (u = 2^log2u[i] units of order / u
+    taps, ops/analysis.py:fit_unit_lpc's layout) -> (log2u [ridges * rows]
+    int32, flat [ridges * rows, order], residual [ridges * rows, n], loss
+    [ridges * rows] float64) of each row's first-minimum candidate: the
+    residual pass of ops/analysis.py:_unit_residual_select_plain in one
+    launch, its residuals `_unit_forward_loop`'s bits, its loss within
+    rounding."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float64:
+        raise ValueError("x must be a torch.float64 tensor")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [ridges, rows, n], got {tuple(x.shape)}")
+    ridges, per_ridge, n = x.shape
+    if (n > 1 and x.stride(2) != 1) or (per_ridge > 1 and x.stride(1) != n) \
+            or x.stride(0) < 0:
+        raise ValueError("x: a ridge's rows must be contiguous")
+    if not 1 <= n <= 1 << 30:
+        raise ValueError(f"n = {n} outside 1..2^30")
+    params, log2u = list(params), [int(v) for v in log2u]
+    if not 1 <= len(params) <= UNIT_MAX_CANDIDATES \
+            or len(log2u) != len(params):
+        raise ValueError(f"{len(params)} candidates with {len(log2u)} unit "
+                         f"counts: a launch takes 1..{UNIT_MAX_CANDIDATES}")
+    rows = ridges * per_ridge
+    order = None
+    for i, p in enumerate(params):
+        if not isinstance(p, torch.Tensor) or p.dtype != torch.float64:
+            raise ValueError(f"candidate {i} must be a torch.float64 tensor")
+        if p.dim() != 2 or p.shape[0] != rows:
+            raise ValueError(f"candidate {i} must be [{rows}, order], got "
+                             f"{tuple(p.shape)}")
+        if p.device != x.device:
+            raise ValueError(f"candidate {i} is on {p.device}, expected "
+                             f"{x.device}")
+        if not p.is_contiguous():
+            raise ValueError(f"candidate {i} must be contiguous")
+        order = p.shape[1] if order is None else order
+        if p.shape[1] != order:
+            raise ValueError(f"candidate {i} has {p.shape[1]} taps, "
+                             f"candidate 0 {order}")
+    _check_order(order)
+    for v in log2u:
+        if not 0 <= v <= 7 or order % (1 << v) or n % (1 << v):
+            raise ValueError(f"log2u {v}: 2^{v} units must divide order "
+                             f"{order} and n = {n}")
+    _check_device(x.device)
+    dev = x.device
+    res = torch.empty((rows, n), dtype=x.dtype, device=dev)
+    flat = torch.empty((rows, order), dtype=x.dtype, device=dev)
+    loss = torch.empty(rows, dtype=x.dtype, device=dev)
+    best = torch.empty(rows, dtype=torch.int32, device=dev)
+    if rows:
+        count = len(params)
+        ptrs = (ctypes.c_void_p * count)(*(p.data_ptr() for p in params))
+        l2 = (ctypes.c_int * count)(*log2u)
+        _launch("unit_residual_select", dev, x.data_ptr(), x.stride(0),
+                per_ridge, ptrs, l2, count, order, n, rows, res.data_ptr(),
+                flat.data_ptr(), loss.data_ptr(), best.data_ptr())
+    return best, flat, res, loss
 
 
 def levinson_lanes(order: int) -> int:

@@ -367,6 +367,132 @@ def test_predict_dense_plain_matches_jax(order, choices):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+# -- unit_residual_select: the residual pass of a layer's unit sweep --------
+
+
+def _old_fit_layer(signal, order, regular_term):
+    """fit_layer as it was before its residual pass had a kernel: each
+    candidate fitted, run and folded in one loop."""
+    n = signal.shape[-1]
+    best_loss = best_flat = best_res = best_log2u = None
+    for u in A.candidate_units(order, n):
+        params = A.fit_unit_lpc(signal, u, order // u, regular_term)
+        res = A.unit_forward(signal, params, u)
+        loss = torch.sum(torch.abs(res[..., 1:]), dim=-1) / n
+        flat = params.reshape(tuple(params.shape[:-2]) + (order,))
+        log2u = torch.full(loss.shape, (u - 1).bit_length(),
+                           dtype=torch.int32, device=signal.device)
+        if best_loss is None:
+            best_loss, best_flat, best_res, best_log2u = (
+                loss, flat, res, log2u)
+        else:
+            better = loss < best_loss
+            best_loss = torch.where(better, loss, best_loss)
+            best_flat = torch.where(better.unsqueeze(-1), flat, best_flat)
+            best_res = torch.where(better.unsqueeze(-1), res, best_res)
+            best_log2u = torch.where(better, log2u, best_log2u)
+    return best_log2u, best_flat, best_res, best_loss
+
+
+def _ridge_signal(ridges, n, seed):
+    """[ridges, 2, 2, n] expanded over the ridges (as pre_stage gives the
+    first layer), noise and a tone, and its ridge terms [ridges, 1, 1, 1];
+    block 0 channel 0 all zero."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    x = (rng.normal(0, 0.02, (2, 2, n))
+         + 0.3 * np.sin(2 * np.pi * rng.uniform(0.005, 0.1, (2, 2, 1)) * t))
+    x[0, 0] = 0.0
+    sig = _t(x).unsqueeze(0).expand((ridges, 2, 2, n))
+    rv = _t(np.array([0.0, 2.0 ** -11, 2.0 ** -9, 2.0 ** -7][:ridges])
+            ).reshape(ridges, 1, 1, 1)
+    return sig, rv
+
+
+@pytest.mark.parametrize("order", [4, 16, 32, 128])
+def test_unit_residual_plain_gives_old_fit_layer(order):
+    """fit_layer on the CPU (every candidate fitted, then
+    `_unit_residual_select_plain`) gives the outputs of the loop it
+    replaced, bit for bit, over a ridge axis."""
+    sig, rv = _ridge_signal(4, 2048, order)
+    got = A.fit_layer(sig, order, rv)
+    want = _old_fit_layer(sig, order, rv)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(_bits(g.numpy()), _bits(w.numpy()))
+    assert torch.all(got[3][:, 0, 0] == 0) and torch.all(got[0][:, 0, 0] == 0)
+
+
+def _candidates(order, n, rows, seed):
+    rng = np.random.default_rng(seed)
+    units = A.candidate_units(order, n)
+    x = _t(rng.normal(0, 0.3, (rows, n)))
+    params = [_t(rng.normal(0, 0.05, (rows, u, order // u))) for u in units]
+    return x, params, units
+
+
+def test_unit_residual_plain_first_minimum_on_ties():
+    """Candidates with equal residuals have equal losses: the first of
+    them wins, in the order given, ahead of every later candidate."""
+    x, params, units = _candidates(32, 512, 3, 1)
+    for p in params:
+        p[0] = 0.0  # row 0: every candidate's residual is the signal
+    params[1][1] = 0.0
+    params[3][1] = 0.0  # row 1: candidates 1 and 3 tie
+    params[0][1] = 1.0  # and candidate 0 is far worse
+    log2u, flat, res, loss = A.unit_residual_select(x, params, units)
+    assert log2u[0] == 0 and log2u[1] == 1
+    assert torch.equal(res[:2], x[:2])
+    assert torch.equal(flat[1], params[1][1].reshape(-1))
+    assert torch.equal(loss[:2], torch.sum(torch.abs(x[:2, 1:]), -1) / 512)
+
+
+def test_unit_residual_plain_nan_first_candidate():
+    """A NaN loss never wins and, first, is never replaced: row 0's first
+    candidate is NaN (the pick stays on it), row 1's second (the first
+    finite one wins over it)."""
+    x, params, units = _candidates(16, 256, 2, 2)
+    params[0][0, 0, 3] = float("nan")
+    params[1][1, 1, 0] = float("nan")
+    params[0][1] = 1.0  # the first candidate loses to all but the NaN one
+    log2u, flat, res, loss = A.unit_residual_select(x, params, units)
+    assert log2u[0] == 0 and torch.isnan(loss[0])
+    assert torch.isnan(flat[0, 3]) and torch.isnan(res[0, -1])
+    assert log2u[1] not in (0, 1) and torch.isfinite(loss[1])
+
+
+def test_unit_residual_plain_silent_row():
+    """An all-zero row: every residual 0, loss 0, the first candidate."""
+    x, params, units = _candidates(128, 1024, 2, 3)
+    x[1] = 0.0
+    log2u, _, res, loss = A.unit_residual_select(x, params, units)
+    assert log2u[1] == 0 and loss[1] == 0 and not torch.any(res[1])
+    assert np.array_equal(_bits(res[1].numpy()), np.zeros(1024, np.int64))
+
+
+def test_unit_residual_plain_degenerate_split():
+    """A split with fewer samples a unit than taps: fit_unit_lpc gives it
+    zero coefficients, its residual is the signal, and its loss competes
+    as any other's."""
+    rng = np.random.default_rng(4)
+    n, order = 64, 128
+    x = _t(rng.normal(0, 0.3, (2, n)))
+    units = [1, 2]
+    params = [A.fit_unit_lpc(x, u, order // u, 0.0) for u in units]
+    assert not any(torch.any(p) for p in params)
+    # row 0 a signal the smooth candidate fits better, row 1 noise
+    x[0] = torch.cumsum(x[0], 0) / 8
+    smooth = torch.zeros(2, 4, 32, dtype=torch.float64)
+    smooth[..., -1] = -1.0  # each unit predicts its last sample
+    log2u, flat, res, loss = A.unit_residual_select(
+        x, params + [smooth], units + [4])
+    own = torch.sum(torch.abs(x[:, 1:]), -1) / n
+    other = A._unit_residual_select_plain(x, [smooth], [4])
+    assert log2u.tolist() == [2, 0]
+    assert loss[0] == other[3][0] < own[0] and loss[1] == own[1]
+    assert torch.equal(res[1], x[1]) and not torch.any(flat[1])
+
+
 # -- dispatch and the wrappers -------------------------------------------------
 
 
@@ -386,6 +512,20 @@ def test_cpu_tensors_take_the_plain_versions():
                          for a in predict_inputs(16, [1, 2, 4], 64, 3))
     assert torch.equal(I._predict_dense(x, cc, log2u, rsh, 4),
                        I._predict_dense_plain(x, cc, log2u, rsh, 4))
+    assert AS.KERNEL_LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_residual_pass():
+    """unit_residual_select on CPU tensors (an expanded ridge axis, fitted
+    coefficients) gives its plain version's bits and launches nothing."""
+    before = dict(AS.KERNEL_LAUNCHES)
+    sig, rv = _ridge_signal(2, 1024, 5)
+    units = A.candidate_units(16, 1024)
+    params = [A.fit_unit_lpc(sig, u, 16 // u, rv) for u in units]
+    got = A.unit_residual_select(sig, params, units)
+    want = A._unit_residual_select_plain(sig, params, units)
+    assert all(np.array_equal(_bits(g.numpy()), _bits(w.numpy()))
+               for g, w in zip(got, want))
     assert AS.KERNEL_LAUNCHES == before
 
 
@@ -446,6 +586,18 @@ _ARG_CASES = {  # case: the check's words in its message
     "exact nbits": "nbits 32",
     "exact device": "unsupported device cpu",
     "predict taps": "taps must be contiguous",
+    "residual dtype": "x must be a torch.float64",
+    "residual shape": "x must be .ridges, rows, n.",
+    "residual rows": "rows must be contiguous",
+    "residual count 0": "0 candidates",
+    "residual count 9": "9 candidates",
+    "residual params rows": "candidate 1 must be .8, order.",
+    "residual params taps": "candidate 1 has 16 taps",
+    "residual params dtype": "candidate 0 must be a torch.float64",
+    "residual params layout": "candidate 0 must be contiguous",
+    "residual order": "order 129",
+    "residual units": "2.3 units must divide",
+    "residual device": "unsupported device cpu",
 }
 
 
@@ -522,6 +674,34 @@ def test_wrapper_argument_checks(case):
         "predict taps": lambda: AS.predict_dense(
             _meta((4, 64), i32), _meta((8, 4), i32).t(), _meta((4,), i32),
             _meta((4,), i32), 4),
+        "residual dtype": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), torch.float32), [_meta((8, 8), f64)], [0]),
+        "residual shape": lambda: AS.unit_residual_select(
+            _meta((8, 64), f64), [_meta((8, 8), f64)], [0]),
+        "residual rows": lambda: AS.unit_residual_select(
+            _meta((2, 64, 4), f64).transpose(1, 2), [_meta((8, 8), f64)],
+            [0]),
+        "residual count 0": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [], []),
+        "residual count 9": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [_meta((8, 8), f64)] * 9, range(9)),
+        "residual params rows": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [_meta((8, 8), f64), _meta((4, 8), f64)],
+            [0, 1]),
+        "residual params taps": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [_meta((8, 8), f64),
+                                     _meta((8, 16), f64)], [0, 1]),
+        "residual params dtype": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [_meta((8, 8), torch.float32)], [0]),
+        "residual params layout": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [_meta((8, 8), f64).t()], [0]),
+        "residual order": lambda: AS.unit_residual_select(
+            _meta((2, 4, 256), f64), [_meta((8, 129), f64)], [0]),
+        "residual units": lambda: AS.unit_residual_select(
+            _meta((2, 4, 64), f64), [_meta((8, 12), f64)], [3]),
+        "residual device": lambda: AS.unit_residual_select(
+            torch.zeros(2, 4, 64, dtype=f64), [torch.zeros(8, 8, dtype=f64)],
+            [0]),
     }
     before = dict(AS.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match=_ARG_CASES[case]):

@@ -1170,3 +1170,150 @@ def test_scans_kernels_refuse_more_than_max_order():
         AS.predict_dense(*(torch.zeros(s, dtype=torch.int32, device="cuda")
                            for s in ((2, 256), (2, 129), 2, 2)), 4)
     assert AS.KERNEL_LAUNCHES == before
+
+
+# -- the residual pass of a layer's unit sweep (unit_residual_select) --------
+#
+# The kernel's residuals are the loop route's sums (A._unit_forward_loop)
+# bit for bit; its loss adds the same terms in another order, so it is
+# held to 1e-12 of the plain version's, and a pick may differ from the
+# plain version's only where the two losses of the candidates lie as
+# close. The plain version runs on the card on the loop route here.
+
+_UR_RTOL = 1e-12
+
+
+def _ur_plain_loop(signal, params, units, monkeypatch):
+    with monkeypatch.context() as m:
+        m.setattr(A, "unit_forward", A._unit_forward_loop)
+        return A._unit_residual_select_plain(signal, params, units)
+
+
+def _ur_inputs(ridges, order, n, seed, blocks=4):
+    """An expanded [ridges, blocks, 2, n] layer input (a ridge-stride-0
+    view, as pre_stage gives the first layer) and each candidate's fitted
+    coefficients under ridge terms 0, 2^-11, ...; then, in the rows of
+    block 0: channel 0 all zero (silent), channel 1 every candidate's
+    coefficients zero (an exact tie of all the candidates); in block 1,
+    channel 0: the first candidate NaN; channel 1: the third candidate
+    zero (the coefficients a degenerate split gets)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    x = (rng.normal(0, 0.02, (blocks, 2, n))
+         + 0.3 * np.sin(2 * np.pi * rng.uniform(0.005, 0.1, (blocks, 2, 1))
+                        * t))
+    x[0, 0] = 0.0
+    sig = torch.from_numpy(x).cuda()
+    sig_r = sig.unsqueeze(0).expand((ridges,) + tuple(sig.shape))
+    rv = torch.tensor([0.0, 2.0 ** -11, 2.0 ** -9, 2.0 ** -7][:ridges],
+                      dtype=torch.float64, device="cuda").reshape(
+        ridges, 1, 1, 1)
+    units = A.candidate_units(order, n)
+    params = [A.fit_unit_lpc(sig_r, u, order // u, rv) for u in units]
+    for p in params:
+        p[:, 0, 1] = 0.0
+    params[0][:, 1, 0] = float("nan")
+    if len(params) > 2:
+        params[2][:, 1, 1] = 0.0
+    return sig_r, params, units
+
+
+def _ur_check(got, want, units):
+    log2u, flat, res, loss = got
+    wl2, wflat, wres, wloss = want
+    agree = log2u == wl2
+    # a pick differs only on a near-tie of the two candidates' losses
+    assert torch.all(agree | ((loss - wloss).abs() <= 1e-12 * wloss.abs()))
+    assert torch.equal(_bits(res[agree]), _bits(wres[agree]))
+    assert torch.equal(_bits(flat[agree]), _bits(wflat[agree]))
+    assert torch.equal(torch.isnan(loss), torch.isnan(wloss))
+    fin = ~torch.isnan(wloss)
+    torch.testing.assert_close(loss[fin], wloss[fin], rtol=_UR_RTOL, atol=0)
+    return agree
+
+
+@pytest.mark.parametrize("preset", [7, 0])
+def test_scans_unit_residual_matches_plain_loop_route(preset, monkeypatch):
+    """Every layer of presets 7 and 0 at block 10240 (4 and 1 ridge terms),
+    the first layer's input expanded over the ridges: one launch a layer,
+    the plain version's picks, residuals and coefficients bit for bit, its
+    losses to 1e-12; the silent row's loss 0, the tie row's pick the first
+    candidate, the NaN row's pick the NaN first candidate, the degenerate
+    candidate's row as the data decide."""
+    _require_card()
+    ridges = len(PRESETS[preset].ridge_terms)
+    x = None
+    for li, order in enumerate(PRESETS[preset].layer_num_params):
+        sig_r, params, units = _ur_inputs(ridges, order, 10240, preset + li)
+        if x is not None:  # a later layer: a contiguous [R, B, C, n] input
+            sig_r = x
+            params = [A.fit_unit_lpc(sig_r, u, order // u, 0.0)
+                      for u in units]
+            params[0][:, 1, 0] = float("nan")
+            for p in params:
+                p[:, 0, 1] = 0.0
+        before = AS.KERNEL_LAUNCHES["unit_residual_select"]
+        got = A.unit_residual_select(sig_r, params, units)
+        torch.cuda.synchronize()
+        assert AS.KERNEL_LAUNCHES["unit_residual_select"] == before + 1
+        want = _ur_plain_loop(sig_r, params, units, monkeypatch)
+        agree = _ur_check(got, want, units)
+        log2u, _, res, loss = got
+        assert agree[:, :2].all()  # the special rows
+        assert torch.all(log2u[:, 0, 1] == 0) and torch.all(log2u[:, 1, 0] == 0)
+        assert torch.all(torch.isnan(loss[:, 1, 0]))
+        if li == 0:
+            assert torch.all(loss[:, 0, 0] == 0) and torch.all(
+                res[:, 0, 0] == 0)
+        x = res
+
+
+@pytest.mark.parametrize("n,order,ridges,rows", [
+    (64, 128, 1, 3),     # units shorter than their taps: u = 1, 2 degenerate
+    (24576, 32, 1, 5),   # longer than a CTA's shared memory: chunks
+    (30000, 16, 2, 3),   # chunks that cut units
+    (777, 3, 3, 2), (300, 4, 2, 7), (2048, 128, 1, 4)])
+def test_scans_unit_residual_edges(n, order, ridges, rows, monkeypatch):
+    """Edge shapes of the kernel's plan against the plain loop route, with
+    coefficients drawn at random (not fitted): degenerate splits whose
+    taps reach back over several units, rows taken in chunks, odd n, an
+    order that is not a power of two."""
+    _require_card()
+    rng = np.random.default_rng(n + order)
+    units = [u for u in (1, 2, 4, 8, 16, 32, 64, 128)
+             if order % u == 0 and n % u == 0]
+    x = torch.from_numpy(rng.normal(0, 0.3, (rows, n))).cuda()
+    sig_r = x.unsqueeze(0).expand(ridges, rows, n)
+    params = [torch.from_numpy(rng.normal(0, 0.2, (ridges, rows, u,
+                                                   order // u))).cuda()
+              for u in units]
+    before = AS.KERNEL_LAUNCHES["unit_residual_select"]
+    got = A.unit_residual_select(sig_r, params, units)
+    torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES["unit_residual_select"] == before + 1
+    _ur_check(got, _ur_plain_loop(sig_r, params, units, monkeypatch), units)
+
+
+def test_scans_unit_residual_fit_layer_one_launch(monkeypatch):
+    """fit_layer on the card launches the kernel once and never takes
+    unit_forward (none of its routes); its outputs are the kernel's."""
+    _require_card()
+
+    def refused(*args):
+        raise AssertionError("unit_forward called on the card's fit_layer")
+
+    sig_r, _, _ = _ur_inputs(4, 128, 10240, 11, blocks=2)
+    rv = torch.zeros(4, 1, 1, 1, dtype=torch.float64, device="cuda")
+    monkeypatch.setattr(A, "unit_forward", refused)
+    before = dict(AS.KERNEL_LAUNCHES)
+    got = A.fit_layer(sig_r, 128, rv)
+    torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES["unit_residual_select"] == (
+        before["unit_residual_select"] + 1)
+    assert got[2].shape == sig_r.shape and got[1].shape == (4, 2, 2, 128)
+    units = A.candidate_units(128, 10240)
+    params = [A.fit_unit_lpc(sig_r, u, 128 // u, rv) for u in units]
+    again = A.unit_residual_select(sig_r, params, units)
+    assert all(torch.equal(_bits(g) if g.is_floating_point() else g,
+                           _bits(w) if w.is_floating_point() else w)
+               for g, w in zip(got, again))
