@@ -33,6 +33,18 @@ With a device list (`devices=`, parallel/mesh.py) each fit chunk's rows
 split into one contiguous shard per entry: fit rows are independent, so
 the bytes equal the one-device encode's.
 
+Spans (utils/profiling.span, off unless turned on): `exact` around
+`encode_many`; `exact.prefit` (locating the full blocks, grouping them
+into fit chunks, starting the fit; with -a N also the planes, the sweep
+and the final pass); `exact.fit` on the fit worker's thread (one chunk
+group's planes, sweep and fetch); `exact.frame` (a track's framing:
+block-type decisions, payloads, entropy coding), inside it `exact.wait`
+(the framing blocked on fit rows not yet fetched) and `exact.oracle`
+(host-oracle refits: tail blocks, guard-flagged rows, decision-margin
+refreshes). Counters beside the guard's: `fit_wait_s`, the host seconds
+spent under `exact.wait`, and `host_refit_rows`, the fit rows the host
+oracle took.
+
 The card's float64 is IEEE and the fit runs the strict serial graph there
 (ops/exact_device.py), so the device fit is bit-identical to the oracle by
 construction. The margin guard stays all the same: every decision (unit
@@ -43,6 +55,7 @@ must clear the `_MARGIN_*` bounds or the row takes the host oracle.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +65,7 @@ from ..constants import CH_PROCESS_MS, LPC_COEF_BITWIDTH, NUM_PREEMPH_FILTERS
 from ..codec.params import EncoderConfig, EncodeParameter
 from ..ops import exact_device as _dev
 from ..parallel.mesh import on_device, resolve_devices, shards
+from ..utils.profiling import span
 from .encoder import ExactEncoder
 from .filters import ms_conversion, preemphasis, preemphasis_calculate_coefficient
 
@@ -146,6 +160,8 @@ class DeviceExactEncoder(ExactEncoder):
         self.guard_rows_total = 0
         self.guard_rows_flagged = 0
         self.guard_decisions_flagged = 0
+        self.fit_wait_s = 0.0
+        self.host_refit_rows = 0
         self._arena_device_dirty = False
         self._prev_fit_input = None  # (plane copy, num_analyze) of the
         #                              last device-cached compress block
@@ -389,12 +405,14 @@ class DeviceExactEncoder(ExactEncoder):
             p = self.parameter
             plane, num_analyze = self._prev_fit_input
             scale = 2.0 ** (-(p.bits_per_sample - 1))
-            for ch in range(p.num_channels):
-                self.buffer_double[:num_analyze] = (
-                    plane[ch, :num_analyze].astype(np.float64) * scale)
-                self.network.set_units_and_parameters(
-                    self.buffer_double, num_analyze,
-                    p.num_afmethod_iterations, self.preset.ridge_terms)
+            with span("exact.oracle"):
+                for ch in range(p.num_channels):
+                    self.buffer_double[:num_analyze] = (
+                        plane[ch, :num_analyze].astype(np.float64) * scale)
+                    self.network.set_units_and_parameters(
+                        self.buffer_double, num_analyze,
+                        p.num_afmethod_iterations, self.preset.ridge_terms)
+            self.host_refit_rows += p.num_channels
             self._arena_device_dirty = False
             r = super()._estimate_mean_ratio(channels, n)
         return r
@@ -408,8 +426,7 @@ class DeviceExactEncoder(ExactEncoder):
         if cached is None:
             # host-oracle fit (tail block or unsupported shape): rewrites
             # the arena exactly
-            self._arena_device_dirty = False
-            return super()._fit_quantize_channel(buf, ch, n, num_analyze)
+            return self._oracle_fit(buf, ch, n, num_analyze)
         if ch == 0:
             # retained for the decision-margin arena refresh (full blocks
             # only — their fits are arena-read-free, so re-running them
@@ -419,8 +436,7 @@ class DeviceExactEncoder(ExactEncoder):
                 num_analyze)
         if cached["per_ch"][ch] is None:
             # guard-flagged row: host-oracle fit, arena exact afterwards
-            self._arena_device_dirty = False
-            return super()._fit_quantize_channel(buf, ch, n, num_analyze)
+            return self._oracle_fit(buf, ch, n, num_analyze)
         self._arena_device_dirty = True
 
         # Replay the device fit's arena writes so the next block-type
@@ -480,6 +496,14 @@ class DeviceExactEncoder(ExactEncoder):
             rshift_row, coef_row = self._quantize_layers()
         return units_row, rshift_row, coef_row
 
+    def _oracle_fit(self, buf, ch: int, n: int, num_analyze: int):
+        """The host oracle's fit of one channel, which leaves the arena
+        exact."""
+        self._arena_device_dirty = False
+        self.host_refit_rows += 1
+        with span("exact.oracle"):
+            return super()._fit_quantize_channel(buf, ch, n, num_analyze)
+
     def encode_block(self, channels: Sequence[np.ndarray], n: int) -> bytes:
         self._block_index += 1
         return super().encode_block(channels, n)
@@ -504,6 +528,11 @@ class DeviceExactEncoder(ExactEncoder):
         FRESH encoder (reference semantics: one encoder state per file)."""
         if self.parameter is None:
             raise RuntimeError("set_encode_parameter not called")
+        with span("exact"):
+            return self._encode_many(tracks, num_samples)
+
+    def _encode_many(self, tracks: Sequence[Sequence[np.ndarray]],
+                     num_samples: Sequence[int]) -> List[bytes]:
         p = self.parameter
         bs = p.num_samples_per_block
         nch = p.num_channels
@@ -512,9 +541,44 @@ class DeviceExactEncoder(ExactEncoder):
             for chans, ns in zip(tracks, num_samples):
                 enc = DeviceExactEncoder(self.config, devices=self._devices)
                 enc.set_encode_parameter(p)
-                outs.append(enc.encode_whole(chans, ns))
+                with span("exact.frame"):
+                    outs.append(enc.encode_whole(chans, ns))
+                self.host_refit_rows += enc.host_refit_rows
             return outs
 
+        with span("exact.prefit"):
+            get_row, row_of_block, plane_store = self._prefit_many(
+                tracks, num_samples)
+
+        for ti, (chans, ns) in enumerate(zip(tracks, num_samples)):
+            with span("exact.frame"):
+                enc = DeviceExactEncoder(self.config, devices=self._devices)
+                enc.set_encode_parameter(p)
+                if get_row is not None:
+                    enc._fit_cache = {
+                        bi: _merge_rows([get_row(r + c) for c in range(nch)])
+                        for bi, r in row_of_block[ti]}
+                    enc._plane_cache = {
+                        bi: plane_store.pop((ti, bi))
+                        for bi, _r in row_of_block[ti]}
+                    enc._cache_preinstalled = True
+                enc._block_index = -1
+                outs.append(enc.encode_whole(chans, ns))
+            # rows are counted here by get_row; decisions and host refits
+            # by each track's encoder
+            self.guard_decisions_flagged += enc.guard_decisions_flagged
+            self.host_refit_rows += enc.host_refit_rows
+        return outs
+
+    def _prefit_many(self, tracks, num_samples):
+        """Locate every full block of the corpus and start its device fit:
+        returns (get_row(r) -> the guarded fit row r, or None where no
+        block is full; [per track (block index, first row)]; the planes
+        and side stages by (track, block), filled as the fits gather
+        them)."""
+        p = self.parameter
+        bs = p.num_samples_per_block
+        nch = p.num_channels
         fit, unpack = _dev.build_packed_fit_fn(
             self.preset.layer_num_params, self.preset.ridge_terms, bs,
             p.bits_per_sample, LPC_COEF_BITWIDTH)
@@ -535,7 +599,6 @@ class DeviceExactEncoder(ExactEncoder):
         for k, (ti, bi, _pos) in enumerate(placements):
             row_of_block[ti].append((bi, k * nch))
 
-        get_row = None
         plane_store: Dict[Tuple[int, int], tuple] = {}
         # chunk-sized groups of whole blocks; each group's MS+preemph planes
         # and side stages are kept for the per-track payload encodes (the
@@ -553,7 +616,9 @@ class DeviceExactEncoder(ExactEncoder):
                 chunk_rows[gi * nch : (gi + 1) * nch] = plane
             return chunk_rows
 
-        if placements and p.num_afmethod_iterations > 0:
+        if not placements:
+            return None, row_of_block, plane_store
+        if p.num_afmethod_iterations > 0:
             # the final refit pass is a device<->host ping-pong per layer,
             # so the sweep is fetched up front (no overlap)
             row_pieces = [gather(group) for group in groups]
@@ -567,31 +632,13 @@ class DeviceExactEncoder(ExactEncoder):
                 d = _row_view(_f, r)
                 d["final"] = _fin[r]
                 return self._apply_guard(d)
-        elif placements:
+        else:
             _fetch_row = self._overlapped_fit(groups, gather, fit, bs,
                                               unpack)
 
             def get_row(r: int, _fr=_fetch_row):
                 return self._apply_guard(_fr(r))
-
-        for ti, (chans, ns) in enumerate(zip(tracks, num_samples)):
-            enc = DeviceExactEncoder(self.config, devices=self._devices)
-            enc.set_encode_parameter(p)
-            if get_row is not None:
-                enc._fit_cache = {
-                    bi: _merge_rows([get_row(r + c) for c in range(nch)])
-                    for bi, r in row_of_block[ti]}
-                enc._plane_cache = {
-                    bi: plane_store.pop((ti, bi))
-                    for bi, _r in row_of_block[ti]}
-                enc._cache_preinstalled = True
-            enc._block_index = -1
-            outs.append(enc.encode_whole(chans, ns))
-            # rows are counted here by get_row; decisions by each track's
-            # encoder
-            self.guard_decisions_flagged += enc.guard_decisions_flagged
-        return outs
-
+        return get_row, row_of_block, plane_store
 
     def _overlapped_fit(self, groups, gather, fit, bs: int, unpack):
         """Gather, fit and fetch the chunk groups on a worker thread while
@@ -615,12 +662,14 @@ class DeviceExactEncoder(ExactEncoder):
             try:
                 prev = None
                 for gi, group in enumerate(groups):
-                    pending = self._dispatch_fit_chunks(gather(group), fit,
-                                                        bs)
-                    if prev is not None:
-                        finish(*prev)
+                    with span("exact.fit"):
+                        pending = self._dispatch_fit_chunks(gather(group),
+                                                            fit, bs)
+                        if prev is not None:
+                            finish(*prev)
                     prev = (gi, pending)
-                finish(*prev)
+                with span("exact.fit"):
+                    finish(*prev)
             except BaseException as e:  # surfaced on the caller's next wait
                 err.append(e)
                 for ev in done:
@@ -631,7 +680,11 @@ class DeviceExactEncoder(ExactEncoder):
 
         def get_row(r: int) -> dict:
             gi = int(np.searchsorted(bounds, r, "right")) - 1
-            done[gi].wait()
+            if not done[gi].is_set():
+                with span("exact.wait"):
+                    t0 = time.perf_counter()
+                    done[gi].wait()
+                    self.fit_wait_s += time.perf_counter() - t0
             if err:
                 raise err[0]
             return _row_view(results[gi], r - int(bounds[gi]))

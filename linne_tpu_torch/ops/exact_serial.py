@@ -39,6 +39,13 @@ KERNELS = ("autocorr_serial", "levinson_serial", "serial_abs_mean",
 # incremented only where the kernel is launched.
 KERNEL_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
+# Launches of each kernel by shape since import (or since a caller reset
+# them): {shape: count}, a shape being (segments, samples, lags) for
+# autocorr_serial, (segments, order) for levinson_serial, (rows, row
+# length, start, n) for serial_abs_mean and (rows, samples, units, taps)
+# for chain_predict.
+LAUNCH_SHAPES = {name: {} for name in KERNELS}
+
 # The recursion kernels hold the format's largest layer order.
 KERNEL_MAX_ORDER = 128
 
@@ -187,7 +194,8 @@ def _check(device: torch.device, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, device: torch.device, *args, entry=None) -> None:
+def _launch(name: str, device: torch.device, shape: tuple, *args,
+            entry=None) -> None:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     fn = _fn(entry or name)
@@ -197,6 +205,8 @@ def _launch(name: str, device: torch.device, *args, entry=None) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
+    shapes = LAUNCH_SHAPES[name]
+    shapes[shape] = shapes.get(shape, 0) + 1
 
 
 def autocorr_serial(seg: torch.Tensor, nlags: int) -> torch.Tensor:
@@ -211,12 +221,14 @@ def autocorr_serial(seg: torch.Tensor, nlags: int) -> torch.Tensor:
     out = seg.new_empty(seg.shape[:-1] + (nlags,))
     if out.numel():
         k = _AUTOCORR_K_OVERRIDE
+        nseg = out.numel() // nlags
+        shape = (nseg, ns, nlags)
         if k is None:
-            _launch("autocorr_serial", seg.device, seg.data_ptr(),
-                    out.data_ptr(), out.numel() // nlags, ns, nlags)
+            _launch("autocorr_serial", seg.device, shape, seg.data_ptr(),
+                    out.data_ptr(), nseg, ns, nlags)
         else:
-            _launch("autocorr_serial", seg.device, seg.data_ptr(),
-                    out.data_ptr(), out.numel() // nlags, ns, nlags, k,
+            _launch("autocorr_serial", seg.device, shape, seg.data_ptr(),
+                    out.data_ptr(), nseg, ns, nlags, k,
                     entry="autocorr_serial_k")
     return out
 
@@ -304,8 +316,9 @@ def levinson_serial(ac: torch.Tensor, order: int):
     # the kernel writes each flag as a byte 0 or 1: a bool tensor's layout
     zc = torch.empty(lead, dtype=torch.bool, device=ac.device)
     if zc.numel():
-        _launch("levinson_serial", ac.device, ac.data_ptr(), coef.data_ptr(),
-                parcor.data_ptr(), zc.data_ptr(), zc.numel(), order)
+        _launch("levinson_serial", ac.device, (zc.numel(), order),
+                ac.data_ptr(), coef.data_ptr(), parcor.data_ptr(),
+                zc.data_ptr(), zc.numel(), order)
     return coef, parcor, zc
 
 
@@ -320,7 +333,8 @@ def serial_abs_mean(rows: torch.Tensor, start: int, n: int) -> torch.Tensor:
         return serial_abs_mean_ref(rows, start, n)
     out = rows.new_empty(rows.shape[:-1])
     if out.numel():
-        _launch("serial_abs_mean", rows.device, rows.data_ptr(),
+        _launch("serial_abs_mean", rows.device,
+                (out.numel(), row_len, start, n), rows.data_ptr(),
                 out.data_ptr(), out.numel(), row_len, start, n)
     return out
 
@@ -341,6 +355,7 @@ def chain_predict(x: torch.Tensor, params: torch.Tensor):
     base = torch.empty_like(x)
     nobase = torch.empty_like(x)
     if x.numel():
-        _launch("chain_predict", x.device, x.data_ptr(), params.data_ptr(),
-                base.data_ptr(), nobase.data_ptr(), B, n, units, npu)
+        _launch("chain_predict", x.device, (B, n, units, npu),
+                x.data_ptr(), params.data_ptr(), base.data_ptr(),
+                nobase.data_ptr(), B, n, units, npu)
     return base, nobase

@@ -166,9 +166,12 @@ def lags_per_thread(request, monkeypatch):
 
 def _check_autocorr(seg, nlags):
     before = ES.KERNEL_LAUNCHES["autocorr_serial"]
+    shape = (seg.numel() // seg.shape[-1], seg.shape[-1], nlags)
+    tally = ES.LAUNCH_SHAPES["autocorr_serial"].get(shape, 0)
     got = ES.autocorr_serial(seg, nlags)
     torch.cuda.synchronize()
     assert ES.KERNEL_LAUNCHES["autocorr_serial"] == before + 1
+    assert ES.LAUNCH_SHAPES["autocorr_serial"][shape] == tally + 1
     assert torch.equal(_bits(got), _bits(ES.autocorr_serial_ref(seg, nlags)))
 
 
@@ -429,10 +432,14 @@ def test_device_exact_encoder_on_card_matches_oracle(preset):
     host.set_encode_parameter(param)
     ref = host.encode_whole([sig[0], sig[1]], sig.shape[1])
     before = dict(ES.KERNEL_LAUNCHES)
+    tallied = {k: sum(v.values()) for k, v in ES.LAUNCH_SHAPES.items()}
     enc = DeviceExactEncoder(device="cuda")
     enc.set_encode_parameter(param)
     assert enc.encode_whole([sig[0], sig[1]], sig.shape[1]) == ref
     assert all(ES.KERNEL_LAUNCHES[k] > before[k] for k in ES.KERNELS)
+    # every launch is tallied under its shape
+    assert all(sum(ES.LAUNCH_SHAPES[k].values()) - tallied[k]
+               == ES.KERNEL_LAUNCHES[k] - before[k] for k in ES.KERNELS)
     assert enc.guard_rows_total == 6 and enc.guard_rows_flagged == 0
 
 
