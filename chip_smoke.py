@@ -61,6 +61,14 @@ Phases (any failure raises and the script exits non-zero):
      the picks agree, losses within UNIT_RESIDUAL_RTOL) and timed beside
      the plain version on the card's routes (the pass it replaced), on
      the loop route, and its bound;
+  4c. the windowed autocorrelation: lpc_autocorr's launches in one
+     128-block batch at presets 7 and 0 (one a layer and one for the
+     block-type estimate: 4 and 3), then each preset-7 call (the
+     estimate and layer 1 on 256 rows, layers 2 and 3 on 1,024) against
+     its plain version (each lag within LPC_AUTOCORR_RTOL of its unit's
+     lag 0, silent units zero, two launches bit-equal) and timed beside
+     the plain version on the card's routes (the pass it replaced) and its
+     bound;
   5. decode groups: every (rows, ns, npu) launch of that decode, recorded
      in a second decode, checked bit for bit against the plain version and
      timed (CUDA events) beside its bound; then one decode under
@@ -461,6 +469,7 @@ TRACE_KERNELS = {"levinson_durbin": "levinson_kernel",
                  "quantize_coefficients": "quantize_kernel",
                  "predict_dense": "predict_kernel",
                  "unit_residual_select": "unit_residual_kernel",
+                 "lpc_autocorr": "lpc_autocorr_kernel",
                  "synthesize_rows": "synth_rows_kernel"}
 
 
@@ -692,20 +701,34 @@ def unit_residual_plain(x, params, log2u, loop=True):
                  for t in out)
 
 
+def lpc_autocorr_plain(x, splits):
+    """AS.lpc_autocorr's call through its plain version on the card's
+    routes (the pass the kernel replaced), in the wrapper's layout."""
+    rows, n = x.shape
+    out = []
+    for l2, lags, w in splits:
+        seg = x.reshape(rows, 1 << l2, n >> l2)
+        out.append(A._autocorrelation_plain(seg if w is None else seg * w,
+                                            lags))
+    return out
+
+
 # The batched encode's kernels (the byte-exact fit's quantizer,
 # "quantize_layer", is the last of AS.KERNELS), the wrapper the encode
 # calls for each, and each wrapper's plain version.
 MAIN_SCANS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
-              "unit_residual_select")
+              "unit_residual_select", "lpc_autocorr")
 _SCAN_WRAPPER = {"levinson_durbin": "levinson_durbin",
                  "quantize_coefficients": "quantize_layers",
                  "predict_dense": "predict_dense",
                  "unit_residual_select": "unit_residual_select",
+                 "lpc_autocorr": "lpc_autocorr",
                  "quantize_layer": "quantize_layers_exact"}
 _SCAN_PLAIN = {"levinson_durbin": A._levinson_durbin_plain,
                "quantize_coefficients": A._quantize_layers_plain,
                "predict_dense": I._predict_dense_plain,
                "unit_residual_select": unit_residual_plain,
+               "lpc_autocorr": lpc_autocorr_plain,
                "quantize_layer": ED._quantize_layers_plain}
 # Where each kernel's loop stands in the JAX package: an XLA scan inside a
 # jitted stage (the byte-exact quantizer: an unrolled loop of the jitted
@@ -715,10 +738,15 @@ _SCAN_REPLACES = {"levinson_durbin": "linne_tpu/ops/analysis.py:141",
                   "quantize_coefficients": "linne_tpu/ops/analysis.py:426",
                   "predict_dense": "linne_tpu/ops/intops.py:87",
                   "unit_residual_select": "linne_tpu/ops/analysis.py:348",
+                  "lpc_autocorr": "linne_tpu/ops/analysis.py:196",
                   "quantize_layer": "linne_tpu/ops/exact_device.py:429"}
 # The residual pass's loss against its plain version's: the same terms
 # summed in another order
 UNIT_RESIDUAL_RTOL = 1e-12
+# The windowed autocorrelation against its plain version's, a lag against
+# its unit's lag 0 (the largest |value| a unit has): the same products
+# summed in another order
+LPC_AUTOCORR_RTOL = 1e-12
 # The recursion's tolerance against its plain version. Both round every
 # operation alike but sum a . s in other orders, so they differ by the
 # rounding of those sums, which the recursion carries on. On rows that the
@@ -794,6 +822,34 @@ def check_unit_residual(args, got, what):
     return float(rel.max()), err, int(agree.sum()), int(agree.numel())
 
 
+def check_lpc_autocorr(args, got, what):
+    """Kernel outputs against the plain version on the same args: each lag
+    within LPC_AUTOCORR_RTOL of its unit's lag 0, silent units exactly 0,
+    a second launch the same bits. Returns (largest |difference| over lag
+    0, largest |difference|, silent units, units)."""
+    want = _SCAN_PLAIN["lpc_autocorr"](*args)
+    again = AS.lpc_autocorr(*args)
+    rel = err = 0.0
+    silent = units = 0
+    for g, a, w in zip(got, again, want):
+        require(torch.equal(bits(g), bits(a)),
+                f"lpc_autocorr not the same bits twice at {what}")
+        scale = w[..., :1].abs()
+        d = (g - w).abs()
+        zero = scale[..., 0] == 0
+        require(not torch.any(g[zero]),
+                f"lpc_autocorr: a silent unit not zero at {what}")
+        live = ~zero
+        if torch.any(live):
+            rel = max(rel, float((d[live] / scale[live]).max()))
+        err = max(err, float(d.max()))
+        silent += int(zero.sum())
+        units += zero.numel()
+    require(rel <= LPC_AUTOCORR_RTOL,
+            f"lpc_autocorr off by {rel:.3g} of lag 0 at {what}")
+    return rel, err, silent, units
+
+
 def check_scan(name, args, got, what, exact_rows=()):
     """One kernel call's outputs against the plain version. Returns (largest
     relative, largest absolute difference, determined rows, rows); the
@@ -803,6 +859,8 @@ def check_scan(name, args, got, what, exact_rows=()):
         return check_levinson(args, got, what, exact_rows)
     if name == "unit_residual_select":
         return check_unit_residual(args, got, what)
+    if name == "lpc_autocorr":
+        return check_lpc_autocorr(args, got, what)
     check_exact(name, got, _SCAN_PLAIN[name](*args), what)
     return 0.0, 0.0, 0, 0
 
@@ -1073,6 +1131,24 @@ def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles=0.0):
                       + rows * (n + order + 1)) + 4 * rows
         chain = 2 * order * dadd_cycles
         t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
+    elif name == "lpc_autocorr":
+        # a multiply-add a product of a unit's lag (ns - l of them), one
+        # fused instruction each (the kernel contracts them); the rows and
+        # windows read once, every ac written once; the chain: the longest
+        # sum
+        x, splits = args
+        rows, n = x.shape
+        mads = 0
+        for l2, lags, _ in splits:
+            ns = n >> l2
+            mads += (1 << l2) * sum(max(0, ns - lag) for lag in range(lags))
+        ops = rows * mads
+        nbytes = 8 * (rows * n + sum(n >> l2 for l2, _, w in splits
+                                     if w is not None)
+                      + rows * sum((1 << l2) * lags
+                                   for l2, lags, _ in splits))
+        chain = n * dadd_cycles / 32  # a stretch of t, then its butterfly
+        t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
     else:
         x, coefs, log2u = args[0], args[1], args[2]
         rows, n = x.shape
@@ -1196,6 +1272,68 @@ def unit_residual_phase(tracks, clock_hz, dadd_cycles) -> None:
           f"losses within {rel:.3g}")
 
 
+def lpc_autocorr_phase(tracks, clock_hz, dadd_cycles) -> None:
+    """The windowed autocorrelation in one 128-block batch of the corpus
+    (the benchmark's batch): its launches a batch at presets 7 and 0 (one
+    a layer and one for the estimate: 4 and 3), then each preset-7 call
+    checked against its plain version and timed beside it (the plain
+    version on the card's routes: the pass the kernel replaced) and its
+    bound."""
+    blocks = batch_blocks(tracks, 128)
+    calls, launches = [], {}
+    real = AS.lpc_autocorr
+
+    def rec(*args):
+        calls.append(clone_args(args))
+        return real(*args)
+
+    for preset in (7, 0):
+        enc = TorchEncoder(batch_blocks=128, device="cuda")
+        enc.set_encode_parameter(param(preset))
+        analyze = enc._analyze_fn(SPB)[0]
+        analyze(blocks)  # warm
+        torch.cuda.synchronize()
+        before = AS.KERNEL_LAUNCHES["lpc_autocorr"]
+        AS.lpc_autocorr = rec if preset == 7 else real
+        try:
+            analyze(blocks)
+        finally:
+            AS.lpc_autocorr = real
+        torch.cuda.synchronize()
+        launches[preset] = AS.KERNEL_LAUNCHES["lpc_autocorr"] - before
+        want = 1 + len(PRESETS[preset].layer_num_params)
+        require(launches[preset] == want,
+                f"preset {preset}: {launches[preset]} lpc_autocorr launches "
+                f"in a batch, not {want} (one a layer and the estimate)")
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for args in calls:
+        shape = (tuple(args[0].shape), [(l2, lags) for l2, lags, _ in args[1]])
+        rel, _, silent, units = check_lpc_autocorr(args, real(*args), shape)
+        ms = min(kernel_ms(lambda: real(*args), reps=5) for _ in range(3))
+        lpc_autocorr_plain(*args)  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lpc_autocorr_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        b_ms, b_by, _ = scan_bound("lpc_autocorr", args, clock_hz,
+                                   dadd_cycles)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms)):
+            total[k] += v
+        print(f"  lpc_autocorr {shape}: kernel {ms:.4f} ms, plain torch on "
+              f"the card's routes {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {100 * b_ms / ms:.1f} % of it reached); each lag "
+              f"within {rel:.3g} of lag 0, {silent} of {units} units silent")
+    print(f"lpc_autocorr: launches a 128-block batch {launches} (preset: "
+          f"launches, one a layer and the estimate); the preset-7 batch's "
+          f"{len(calls)} calls: kernel {total['ms']:.4f} ms, plain torch on "
+          f"the card's routes (the pass it replaced) {total['plain_ms']:.3f}"
+          f" ms, bound {total['bound_ms']:.4f} ms "
+          f"({100 * total['bound_ms'] / total['ms']:.1f} % of it reached)")
+
+
 def clone_args(args):
     """A call's arguments with every tensor (also in a list) cloned."""
     def one(a):
@@ -1213,6 +1351,8 @@ def arg_shape(a):
         return tuple(a.shape)
     if isinstance(a, list) and a and isinstance(a[0], torch.Tensor):
         return [tuple(t.shape) for t in a]
+    if isinstance(a, list) and a and isinstance(a[0], tuple):
+        return [tuple(arg_shape(v) for v in t) for t in a]
     return a
 
 
@@ -1262,7 +1402,10 @@ def time_scan_calls(name, calls, clock_hz, dadd_cycles, ddiv_cycles,
            if name == "levinson_durbin" else
            f"; picks agree on {r['det']} of {r['rows']} rows (residuals "
            f"bit-equal there), losses within {r['rel']:.3g}"
-           if name == "unit_residual_select" else ", bit-equal")
+           if name == "unit_residual_select" else
+           f"; each lag within {r['rel']:.3g} of its unit's lag 0, "
+           f"{r['det']} of {r['rows']} units silent and zero, the same bits"
+           f" twice" if name == "lpc_autocorr" else ", bit-equal")
     chain = (f", chain bound {r['chain_ms']:.4f} ms "
              f"({100 * r['chain_ms'] / r['ms']:.1f} % of it reached)"
              if r["chain_ms"] else "")
@@ -1282,7 +1425,7 @@ class PlainScans:
     def __init__(self, on: bool = True):
         self.on = on
         self._real = (A.levinson_durbin, A.quantize_layers, I._predict_dense,
-                      A.unit_residual_select)
+                      A.unit_residual_select, A.unit_autocorrelations)
 
     def __enter__(self):
         if self.on:
@@ -1290,11 +1433,12 @@ class PlainScans:
             A.quantize_layers = A._quantize_layers_plain
             I._predict_dense = I._predict_dense_plain
             A.unit_residual_select = A._unit_residual_select_plain
+            A.unit_autocorrelations = A._unit_autocorrelations_plain
         return self
 
     def __exit__(self, *exc):
         (A.levinson_durbin, A.quantize_layers, I._predict_dense,
-         A.unit_residual_select) = self._real
+         A.unit_residual_select, A.unit_autocorrelations) = self._real
 
 
 def stage_ops(blocks) -> dict:
@@ -3347,6 +3491,7 @@ def main() -> int:
     launches, scan_launches, datas, plain_multiple = main_path_phase(tracks)
     scans = scan_calls_phase(tracks, clock_hz, dadd, ddiv)
     unit_residual_phase(tracks, clock_hz, dadd)
+    lpc_autocorr_phase(tracks, clock_hz, dadd)
     scan_pairs_phase(tracks)
     group_err = decode_groups_phase(datas)
     decode_profile_phase(datas)

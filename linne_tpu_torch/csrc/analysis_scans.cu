@@ -1,5 +1,6 @@
 // The serial recursions of the batched encoder's analysis and finish
-// stages, and the byte-exact fit's quantizer.
+// stages, its layer fits' autocorrelation and residual pass, and the
+// byte-exact fit's quantizer.
 //
 // These kernels replace no Pallas kernel: the JAX package left these loops
 // to XLA as `lax.scan` loops (or, on the byte-exact fit, unrolled Python
@@ -25,6 +26,11 @@
 //                       (linne_tpu/ops/analysis.py:348): every candidate
 //                       split's residual and loss and the first-minimum
 //                       pick of a layer, one launch a layer (below).
+//   lpc_autocorr_kernel replaces the layer fits' Welch-windowed
+//                       autocorrelation (linne_tpu/ops/analysis.py
+//                       fit_unit_lpc, autocorrelation): every candidate
+//                       split's windowing and lags, one launch a layer and
+//                       one for the block-type estimate (below).
 //
 // Exactness. The quantizer and the predict cascade are bit-equal to their
 // plain torch versions (linne_tpu_torch/ops/analysis.py
@@ -1219,6 +1225,320 @@ __global__ void __launch_bounds__(kUrThreads, 2)
   }
 }
 
+// -- lpc_autocorr -------------------------------------------------------------
+//
+// The windowed autocorrelation of every candidate unit split of a layer
+// fit (and of the block-type estimate): for each candidate, u = 2^log2u
+// units of ns = n / u samples, each unit's samples multiplied by the
+// candidate's window of ns taps, xw[t] = x[t] * w[t], and for each unit
+// and lag l < lags, ac[l] = sum_{t < ns - l} xw[t] * xw[t + l]. It
+// replaces, on a CUDA tensor, ops/analysis.py's per-candidate `seg *
+// window` product and all of `autocorrelation`'s card routes (a lag scan
+// of one product and one sum a lag, the FFT, the chunked G-matrix product
+// `_autocorr_matmul`), which the JAX package leaves to XLA
+// (linne_tpu/ops/analysis.py fit_unit_lpc, autocorrelation): it replaces
+// no Pallas kernel.
+//
+// Exactness. Each windowed sample is __dmul_rn(x[t], w[t]) with w read
+// from the caller's window table, the bits of torch's `seg * window`.
+// Each ac[l] is summed in a fixed order (below) with fused multiply-adds:
+// no atomics, one CTA a row, so the same bits for a row wherever it sits
+// in the batch and run to run, within rounding of the plain version's
+// sums. A silent row gives exact zeros.
+//
+// Bound. The multiply-adds, sum over the candidates of u * sum_{l < lags}
+// (ns - l) a row, at the FP64 rate (one DFMA each): 2.69 M a row at order
+// 128 and n = 10240; the bytes, each row read once and every ac written
+// once, are far below that there and set the bound at orders 2 and 4.
+//
+// Design. One CTA a row, two CTAs an SM (so that one's staging and
+// windowing overlap the other's multiply-adds). The row is staged in
+// shared memory with cp.async in chunks, each with the lags' lookahead, as
+// long as two CTAs' copies fit. For each candidate: (1) the CTA writes the
+// windowed chunk beside it (the window's taps by cp.async, then one
+// multiply each), each unit followed by zeros for the lags that reach
+// past its end and, where that leaves an even stride, one slot more, so
+// that units start in other banks; (2) the work is cut into items: a
+// unit, a group of up to 16 consecutive lags (the last group takes 2..17,
+// so 129 lags are 7 x 16 + 17) and one of S stretches of t, S the largest
+// power of two with S x (units x groups) <= the CTA's threads and S x 32
+// <= ns, each stretch of odd length, so that lanes S apart or a unit
+// apart read distinct banks. An item keeps its group's sums in registers
+// and a ring of its group's second operands: a step loads one sample of
+// each operand for K fused multiply-adds, where the lag scan loaded two a
+// multiply-add; the zeros after the unit stand in for every mask. A group
+// is run at the least compiled lag count that holds it (2, 3, 5, 9, 16 or
+// 17: the groups of the format's power-of-two orders), its extra lags left
+// unstored. (3) The lanes that share a (unit, group) pair, a warp or S of
+// its lanes, add their sums in a butterfly and one of them adds the total
+// to the row's sums in shared memory; where a pair spans warps (S > 32),
+// or lanes of two lag counts share a warp, partials go to shared memory
+// and (4) one thread an output adds them in order of t. The row's sums
+// leave in one coalesced copy. The order of every sum depends only on n
+// and the candidates, through the plan.
+//
+// Measured (chip_smoke.py phase 4c; NVIDIA H100 80GB HBM3 at 700 W): see
+// PERF.md. Per launch of a 128-block batch: order 128 (1,024 rows, 8
+// candidates) ~0.57 ms against a 0.165 ms FP64 bound and 6.8-7.1 ms for
+// the card routes it replaced; of it ~0.21 ms staging, windowing and
+// barriers (the launch with the multiply-adds taken out).
+
+constexpr int kLaThreads = 256;    // the most threads a CTA
+constexpr int kLaMaxCands = 8;     // unit counts 1, 2, 4, ..., 128
+constexpr int kLaMaxLags = kMaxOrder + 1;
+constexpr int kLaGroup = 16;       // lags an item, the last group 2..17
+constexpr int kLaMaxK = kLaGroup + 1;
+constexpr int kLaMinStretch = 32;  // the fewest samples of t an item takes
+constexpr int kLaSmemBudget = 112 * 1024;  // bytes a CTA: two an SM
+
+struct LaCands {
+  const double* window[kLaMaxCands];  // [n >> log2u] or null: no window
+  int log2u[kLaMaxCands];
+  int lags[kLaMaxCands];
+  int count;
+};
+
+// Shared memory in doubles: the staged chunk and its lookahead, the
+// windowed chunk (units at odd strides), the partials (min(lags, kLaMaxK)
+// doubles an item or warp), the row's sums [total].
+struct LaPlan {
+  int chunk, look, raw_len, wbuf_len, part_len, total;
+};
+
+// The lag groups of a unit with L lags: groups of kLaGroup, the last one
+// K = L - kLaGroup * (G - 1) in [1, kLaMaxK].
+__host__ __device__ __forceinline__ int la_groups(int L) {
+  return L <= kLaMaxK ? 1 : (L - 2) / kLaGroup + 1;
+}
+
+// The lag count the kernel is compiled for that runs a group of K lags:
+// the least of those of the format's power-of-two orders (2, 3, 5, 9, 16,
+// 17) that holds K; the lags past K are formed and left unstored.
+__host__ __device__ __forceinline__ int la_compiled(int K) {
+  return K <= 2 ? 2 : K == 3 ? 3 : K <= 5 ? 5 : K <= 9 ? 9
+                                             : K <= kLaGroup ? kLaGroup
+                                                             : kLaMaxK;
+}
+
+// The slots after each unit of ns samples in the windowed chunk: zeros for
+// the lags its groups form past its end (la_compiled of its largest group,
+// less one), and one more where that leaves an even stride, so that the
+// units start in other banks.
+__host__ __device__ __forceinline__ int la_pad(int ns, int L) {
+  const int G = la_groups(L);
+  const int kc =
+      max(G > 1 ? kLaGroup : 0, la_compiled(L - kLaGroup * (G - 1)));
+  return kc - 1 + ((ns + kc - 1) & 1 ? 0 : 1);
+}
+
+// S, the stretches of t a (unit, group) pair is cut into: the largest
+// power of two with S x pairs <= threads and S x kLaMinStretch <= ns.
+__host__ __device__ __forceinline__ int la_stretches(int pairs, int ns,
+                                                     int threads) {
+  int S = 1;
+  while (2 * S * pairs <= threads && 2 * S * kLaMinStretch <= ns) S *= 2;
+  return S;
+}
+
+// The lanes whose sums of one pair are added in registers: a warp's (S >=
+// 32: a warp holds one pair), S (one lag count over the warp: its lanes
+// run the same code), else 1 (lanes of two lag counts share the warp).
+// Where they are all S stretches, the pair's total goes straight to the
+// row's sums; else one partial a `lanes` lanes, for the fold.
+__host__ __device__ __forceinline__ int la_lanes(int S, int G) {
+  return S >= 32 ? 32 : (G == 1 ? S : 1);
+}
+
+// acc[k] = sum_{t in [t0, t1)} w[t] * w[t + l0 + k], k < K; w indexes the
+// unit's windowed samples, which zeros follow for K - 1 slots past its
+// end, so no product needs a mask. Each acc[k] adds its products in order
+// of t, fused. A ring of K registers holds w[t + l0 .. t + l0 + K): a step
+// loads w[t] and the one sample that enters the ring, for K multiply-adds,
+// and a block of K steps brings the ring back to its first slot, so that
+// every index is static; the last block's steps past t1 multiply zeros.
+template <int K>
+__device__ __forceinline__ void la_sums(const double* w, int t0, int t1,
+                                        int l0, double (&acc)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
+  if (t0 >= t1) return;
+  double ring[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) ring[k] = w[t0 + l0 + k];
+  for (int t = t0; t < t1; t += K) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const double a = t + s < t1 ? w[t + s] : 0.0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        acc[k] = __fma_rn(a, ring[(s + k) % K], acc[k]);
+      }
+      // w[t + l0 + s] leaves the ring, w[t + l0 + s + K] enters: the last
+      // lag of step s + 1, read where that step is inside the stretch
+      if (t + s + 1 < t1) ring[s] = w[t + l0 + s + K];
+    }
+  }
+}
+
+// One item's sums, added over `lanes` lanes of the warp in a butterfly
+// (every lane then holds the same bits); where `store`, the first `keep`
+// written to dst[k], or with `add` added to it.
+template <int K>
+__device__ __forceinline__ void la_item(const double* w, int t0, int t1,
+                                        int l0, int lanes, int keep,
+                                        bool add, bool store, double* dst) {
+  double acc[K];
+  la_sums<K>(w, t0, t1, l0, acc);
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      acc[k] = __dadd_rn(acc[k], __shfl_xor_sync(kFullMask, acc[k], off));
+    }
+  }
+  if (!store) return;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < keep) dst[k] = add ? __dadd_rn(dst[k], acc[k]) : acc[k];
+  }
+}
+
+// la_item for a group of K lags, at la_compiled(K) lags (the unit's zeros
+// and the chunk's lookahead cover the samples the lags past K read).
+__device__ __forceinline__ void la_item_k(int K, const double* w, int t0,
+                                          int t1, int l0, int lanes,
+                                          bool add, bool store, double* dst) {
+#define LA_RUN(k) la_item<k>(w, t0, t1, l0, lanes, K, add, store, dst)
+  switch (la_compiled(K)) {
+    case 2: LA_RUN(2); break;
+    case 3: LA_RUN(3); break;
+    case 5: LA_RUN(5); break;
+    case 9: LA_RUN(9); break;
+    case kLaGroup: LA_RUN(kLaGroup); break;
+    default: LA_RUN(kLaMaxK); break;
+  }
+#undef LA_RUN
+}
+
+// Row `row` of x at x + row * row_stride; out [rows, plan.total], each
+// candidate's [u][lags] after the one before it.
+__global__ void __launch_bounds__(kLaThreads, 2)
+    lpc_autocorr_kernel(const double* __restrict__ x, int64_t row_stride,
+                        int n, const LaCands cands, const LaPlan plan,
+                        double* __restrict__ out) {
+  extern __shared__ double la_sm[];
+  double* const raw = la_sm;
+  double* const wbuf = raw + plan.raw_len;
+  double* const part = wbuf + plan.wbuf_len;
+  double* const sums = part + plan.part_len;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int64_t row = blockIdx.x;
+  const double* const xr = x + row * row_stride;
+  SPLIT_START(blockIdx.x == 0 && tid == 0);
+  for (int i = tid; i < plan.total; i += threads) sums[i] = 0.0;
+  const int chunks = (n + plan.chunk - 1) / plan.chunk;
+  for (int k = 0; k < chunks; ++k) {
+    const int c0 = k * plan.chunk, c1 = min(n, c0 + plan.chunk);
+    // raw[i] = x[c0 + i]; the last reads of raw (a window pass) are
+    // behind a barrier, the sums' and partials' readers are not touched
+    ur_stage(raw, xr, c0, min(n, c1 + plan.look), 0);
+    SPLIT_MARK(0, raw[0]);
+    int col = 0;
+    for (int c = 0; c < cands.count; ++c) {
+      const int l2 = cands.log2u[c], L = cands.lags[c];
+      const int ns = n >> l2;
+      const int j0 = c0 / ns, j1 = (c1 - 1) / ns;
+      const int pad = la_pad(ns, L);  // zeros after a unit
+      // (1) the windowed chunk: unit j at wbuf[base(j) + t], t from the
+      // unit's start, base(j) = j * ns - c0 + pad * (j - j0), its zeros
+      // after it where it ends before the chunk's lookahead does. The
+      // window's taps come in with cp.async, all of a thread's in flight
+      // at once, and each thread then multiplies the taps it copied by the
+      // samples
+      const double* const win = cands.window[c];
+      const int we = min(min(n, c1 + plan.look), (j1 + 1) * ns);
+      // a thread's samples t = c0 + tid + m * threads, each one's unit j
+      // and offset r = t - j * ns carried from the one before
+      const int jstep = threads / ns, rstep = threads - jstep * ns;
+      const int jt = (c0 + tid) / ns, rt = c0 + tid - jt * ns;
+      if (win) {
+        const unsigned wsb =
+            static_cast<unsigned>(__cvta_generic_to_shared(wbuf));
+        for (int t = c0 + tid, j = jt, r = rt; t < we; t += threads) {
+          cp_async8(wsb + 8u * (t - c0 + pad * (j - j0)), win + r);
+          j += jstep;
+          r += rstep;
+          if (r >= ns) r -= ns, ++j;
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+      }
+      for (int t = c0 + tid, j = jt, r = rt; t < we; t += threads) {
+        const int i = t - c0 + pad * (j - j0);
+        wbuf[i] = win ? __dmul_rn(raw[t - c0], wbuf[i]) : raw[t - c0];
+        j += jstep;
+        r += rstep;
+        if (r >= ns) r -= ns, ++j;
+      }
+      for (int i = tid; i < (we / ns - j0) * pad; i += threads) {
+        const int j = j0 + i / pad;
+        wbuf[(j + 1) * ns - c0 + pad * (j - j0) + (i - (j - j0) * pad)] = 0.0;
+      }
+      __syncthreads();
+      SPLIT_MARK(1, wbuf[0]);
+      // (2)-(3) the items: pair p = (unit j0 + p / G, group p % G), its
+      // stretch s; a warp's lanes all take part in its butterflies (those
+      // past the last item with empty stretches)
+      const int G = la_groups(L), klast = L - kLaGroup * (G - 1);
+      const int ks = min(L, kLaMaxK);  // the partials' stride
+      const int pairs = (j1 - j0 + 1) * G;
+      const int S = la_stretches(pairs, ns, threads), sh = __ffs(S) - 1;
+      const int lanes = la_lanes(S, G), lsh = __ffs(lanes) - 1;
+      const bool direct = lanes == S;
+      const int slots = S >> lsh;  // partials a pair, where not direct
+      const int lane = tid & 31;
+      for (int ib = tid - lane; ib < pairs * S; ib += threads) {
+        const bool valid = ib + lane < pairs * S;
+        const int i = valid ? ib + lane : ib;
+        const int p = i >> sh, s = i & (S - 1);
+        const int jp = p / G, g = p - jp * G, j = j0 + jp;
+        const int l0 = kLaGroup * g, K = g == G - 1 ? klast : kLaGroup;
+        const int a0 = max(0, c0 - j * ns);
+        const int t1 = min(min(ns, c1 - j * ns), ns - l0);
+        const int len = valid ? max(0, t1 - a0) : 0;
+        const int cl = ((len + S - 1) >> sh) | 1;
+        const int ts = min(len, s * cl), te = min(len, ts + cl);
+        // w from the unit's first sample in the chunk, a0 (>= 0 in wbuf)
+        la_item_k(K, wbuf + (j * ns - c0 + pad * (j - j0) + a0), ts, te, l0,
+                  lanes, direct, valid && (s & (lanes - 1)) == 0,
+                  direct ? sums + col + j * L + l0
+                         : part + ((p << (sh - lsh)) + (s >> lsh)) * ks);
+      }
+      SPLIT_MARK(2, part[0]);
+      __syncthreads();
+      SPLIT_MARK(3, 0);
+      // (4) where the pairs left partials, the chunk's sums, a thread an
+      // output, in order of t; the next window pass runs beside it (its
+      // barrier comes before the partials are written again)
+      for (int o = tid; !direct && o < (j1 - j0 + 1) * L; o += threads) {
+        const int jl = o / L, l = o - jl * L;
+        const int g = min(l / kLaGroup, G - 1);
+        const double* const q =
+            part + (jl * G + g) * slots * ks + (l - kLaGroup * g);
+        double v = 0.0;
+        for (int s = 0; s < slots; ++s) v = __dadd_rn(v, q[s * ks]);
+        double* const dst = sums + col + (j0 + jl) * L + l;
+        *dst = __dadd_rn(*dst, v);
+      }
+      SPLIT_MARK(4, sums[0]);
+      col += (1 << l2) * L;
+    }
+  }
+  __syncthreads();
+  double* const orow = out + row * plan.total;
+  for (int i = tid; i < plan.total; i += threads) orow[i] = sums[i];
+  SPLIT_MARK(5, 0);
+  SPLIT_END();
+}
+
 // A dependent chain of n __ddiv_rn in one warp (a <- x / a stays near
 // sqrt(x)), timed with clock64: the card's divide latency is
 // (cycles(n2) - cycles(n1)) / (n2 - n1). The recursion's chain bound
@@ -1427,5 +1747,94 @@ extern "C" int linne_unit_residual_select(
                          static_cast<cudaStream_t>(stream)>>>(
       x, ridge_stride, per_ridge, cands, order, n, chunk, res, flat, loss,
       log2u_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: row r of n float64 samples at x + r * row_stride (row_stride >= 0, in
+// doubles); count (1..8) candidates, candidate i: 2^log2u[i] units (log2u
+// 0..7, dividing n) of n >> log2u[i] samples under windows[i] (float64,
+// n >> log2u[i] taps, or null: no window) and lags[i] (1..129) lags;
+// out [rows, sum of 2^log2u[i] * lags[i]] float64, candidate i's [units,
+// lags] after candidate i - 1's.
+extern "C" int linne_lpc_autocorr(const double* x, int64_t row_stride,
+                                  int64_t rows, int n,
+                                  const void* const* windows,
+                                  const int* log2u, const int* lags,
+                                  int count, double* out, void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || row_stride < 0 || n < 1 ||
+      n > (1 << 30) || count < 1 || count > kLaMaxCands) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LaCands cands{};
+  cands.count = count;
+  LaPlan plan{};
+  int max_lags = 1;
+  for (int i = 0; i < count; ++i) {
+    const int l2 = log2u[i];
+    if (l2 < 0 || l2 > 7 || (n >> l2) << l2 != n || lags[i] < 1 ||
+        lags[i] > kLaMaxLags) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cands.window[i] = static_cast<const double*>(windows[i]);
+    cands.log2u[i] = l2;
+    cands.lags[i] = lags[i];
+    plan.total += (1 << l2) * lags[i];
+    // the furthest lag a group forms, its compiled lags past L included
+    const int G = la_groups(lags[i]);
+    max_lags = max(max_lags, kLaGroup * (G - 1) +
+                                 la_compiled(lags[i] - kLaGroup * (G - 1)));
+  }
+  // the plan, from n and the candidates alone: a thread for every ~20
+  // samples up to kLaThreads; the partials of every item (or warp); the
+  // longest chunk whose staged and windowed copies fit beside them
+  const int threads = min(kLaThreads, max(32, (n / 20 + 31) / 32 * 32));
+  plan.look = max_lags - 1;
+  for (int i = 0; i < count; ++i) {  // a chunk reaches 1..u units
+    const int ns = n >> log2u[i], G = la_groups(lags[i]);
+    for (int units = 1; units <= (1 << log2u[i]); ++units) {
+      const int S = la_stretches(units * G, ns, threads);
+      const int lanes = la_lanes(S, G);
+      if (lanes != S) {
+        plan.part_len = max(plan.part_len, units * G * (S / lanes) *
+                                               min(lags[i], kLaMaxK));
+      }
+    }
+  }
+  const int avail = kLaSmemBudget / 8 - plan.part_len - plan.total;
+  auto wbuf_len = [&](int chunk) {
+    int zeros = 0;  // the zeros after each unit the chunk reaches
+    for (int i = 0; i < count; ++i) {
+      const int ns = n >> log2u[i];
+      const int units = min(1 << log2u[i], (chunk + plan.look - 1) / ns + 2);
+      zeros = max(zeros, units * la_pad(ns, lags[i]));
+    }
+    return min(n, chunk + plan.look) + zeros;
+  };
+  int chunks = 1;
+  plan.chunk = n;
+  while (min(n, plan.chunk + plan.look) + wbuf_len(plan.chunk) > avail) {
+    if (plan.chunk <= 1) return static_cast<int>(cudaErrorInvalidValue);
+    chunks = max(chunks + 1, chunks * 5 / 4);
+    plan.chunk = (n + chunks - 1) / chunks;
+  }
+  plan.raw_len = min(n, plan.chunk + plan.look);
+  plan.wbuf_len = wbuf_len(plan.chunk);
+  const size_t smem = 8 * static_cast<size_t>(plan.raw_len + plan.wbuf_len +
+                                              plan.part_len + plan.total);
+  static bool allowed[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    err = cudaFuncSetAttribute(lpc_autocorr_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kLaSmemBudget);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = true;
+  }
+  lpc_autocorr_kernel<<<static_cast<unsigned>(rows), threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, row_stride, n, cands, plan, out);
   return static_cast<int>(cudaGetLastError());
 }

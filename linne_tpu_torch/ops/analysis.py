@@ -5,13 +5,15 @@ Every level of the reference's nested per-block loops (ridge candidates x
 layers x unit counts x units; reference call stack:
 LINNENetwork_SetUnitsAndParameters, linne_network.c:582-630) is a batch
 dimension of one tensor computation over [ridges, blocks, channels, ...].
-The recursions over taps or orders (`lax.scan` in the reference), and
-the residual pass of a layer's unit-count sweep (every candidate's
-residual, loss and the first-minimum pick), are, on a CUDA tensor, one
-launch each of a hand-written kernel (ops/analysis_scans.py,
-csrc/analysis_scans.cu) and, on a CPU tensor, their plain versions here:
-Python loops of batched tensor ops (`_levinson_durbin_plain`,
-`_quantize_coefficients_plain`, `_unit_residual_select_plain`).
+The recursions over taps or orders (`lax.scan` in the reference), a
+layer's windowed autocorrelations (every candidate split's windowing and
+lags, and the block-type estimate's) and the residual pass of its
+unit-count sweep (every candidate's residual, loss and the first-minimum
+pick) are, on a CUDA tensor, one launch each of a hand-written kernel
+(ops/analysis_scans.py, csrc/analysis_scans.cu) and, on a CPU tensor,
+their plain versions here: Python loops of batched tensor ops
+(`_levinson_durbin_plain`, `_quantize_coefficients_plain`,
+`_unit_autocorrelations_plain`, `_unit_residual_select_plain`).
 
 Routes, as in the reference: a lag scan (one pass over the signal per lag
 or tap) for few lags, an FFT (torch.fft) at 32 and above, and the
@@ -19,7 +21,12 @@ matrix-unit routes (`_autocorr_matmul`, `_unit_forward_matmul`: one batched
 float64 product each, on the H100's FP64 tensor cores) from 9 lags / 8 taps
 up, under a bound on what they materialize. The reference takes the
 matrix-unit routes where a matrix unit exists and keeps the lag/FFT routes
-on the CPU; `_use_matmul_routes` says which here. The routes compute the
+on the CPU; `_use_matmul_routes` says which here. On a card the
+autocorrelation takes none of them: `autocorrelation` and
+`unit_autocorrelations` launch the `lpc_autocorr` kernel, and its routes
+are the plain version's (`_autocorrelation_plain`), where the override
+forces `_autocorr_matmul` on the CPU for the route-parity tests;
+`unit_forward` keeps its routes on both devices. The routes compute the
 same quantity; only float rounding differs, which can shift a chosen
 coefficient, never losslessness.
 
@@ -114,10 +121,24 @@ def _autocorr_matmul(x: torch.Tensor, num_lags: int) -> torch.Tensor:
 
 def autocorrelation(x: torch.Tensor, num_lags: int) -> torch.Tensor:
     """Batched autocorrelation over the last axis: ac[..., lag] =
-    sum_t x[t] * x[t+lag] for lag in [0, num_lags). A lag scan (one pass
-    over the signal per lag) for few lags, the Wiener-Khinchin FFT route
-    for many, and on a matrix unit the chunked G-matrix product from 9
-    lags (npu >= 8) while its G tensor stays within _MATMUL_BYTES_BUDGET."""
+    sum_t x[t] * x[t+lag] for lag in [0, num_lags). A CUDA tensor launches
+    the `lpc_autocorr` kernel (no window, one unit). Any other takes the
+    plain routes: a lag scan (one pass over the signal per lag) for few
+    lags, the Wiener-Khinchin FFT route for many, and under the matrix-unit
+    override (`_MATMUL_ROUTES_OVERRIDE`) the chunked G-matrix product from
+    9 lags (npu >= 8) while its G tensor stays within
+    _MATMUL_BYTES_BUDGET."""
+    if x.is_cuda:
+        batch_shape = tuple(x.shape[:-1])
+        ac = analysis_scans.lpc_autocorr(x.reshape(-1, x.shape[-1]),
+                                          [(0, num_lags, None)])[0]
+        return ac.reshape(batch_shape + (num_lags,))
+    return _autocorrelation_plain(x, num_lags)
+
+
+def _autocorrelation_plain(x: torch.Tensor, num_lags: int) -> torch.Tensor:
+    """autocorrelation's plain routes on any device (on a card: the
+    matrix-unit route by default, which the kernel replaced)."""
     n = x.shape[-1]
     if 9 <= num_lags <= _CHUNK + 1 and _use_matmul_routes(x):
         g_bytes = _rows(x) * _CHUNK * (_CHUNK + num_lags - 1) * 4
@@ -196,6 +217,60 @@ def _levinson_durbin_plain(ac: torch.Tensor, order: int,
     return lpc
 
 
+def unit_autocorrelations(signal: torch.Tensor, splits, window_type: int,
+                          windows: dict | None = None) -> list:
+    """The windowed autocorrelation of each unit split of signal [..., n]:
+    for each (units, lags) of `splits`, ac[..., units, lags] of the n /
+    units samples of each unit times the window of that many taps
+    (`window_type`, kept in `windows`: see _window). A CPU tensor takes
+    `_unit_autocorrelations_plain`; any other launches the `lpc_autocorr`
+    kernel once for all the splits (a leading axis of stride 0, the
+    ridges expanded over a layer's input, is read once and the result
+    expanded over it) or raises."""
+    if signal.device.type == "cpu":
+        return _unit_autocorrelations_plain(signal, splits, window_type,
+                                            windows)
+    return _unit_autocorrelations_launch(signal, splits, window_type,
+                                         windows)
+
+
+def _unit_autocorrelations_launch(signal: torch.Tensor, splits,
+                                  window_type: int,
+                                  windows: dict | None = None) -> list:
+    """unit_autocorrelations through `analysis_scans.lpc_autocorr`: the
+    distinct rows of signal [..., n] (a leading axis of stride 0 read
+    once), one launch, each split's result in signal's batch shape."""
+    n = signal.shape[-1]
+    lead = tuple(signal.shape[:-1])
+    base = signal
+    if signal.dim() > 1 and signal.shape[0] > 1 and signal.stride(0) == 0:
+        base = signal[:1]
+    acs = analysis_scans.lpc_autocorr(
+        base.reshape(-1, n),
+        [((u - 1).bit_length(), lags,
+          _window(window_type, n // u, signal, windows))
+         for u, lags in splits])
+    return [ac.reshape(tuple(base.shape[:-1]) + (u, lags)).expand(
+        lead + (u, lags)) for ac, (u, lags) in zip(acs, splits)]
+
+
+def _unit_autocorrelations_plain(signal: torch.Tensor, splits,
+                                 window_type: int,
+                                 windows: dict | None = None) -> list:
+    """unit_autocorrelations as torch ops, a split at a time: each unit
+    multiplied by the window, then `autocorrelation`'s plain routes (on a
+    card the matrix-unit route, the pass the kernel replaced). The kernel's
+    plain version."""
+    n = signal.shape[-1]
+    out = []
+    for units, lags in splits:
+        ns = n // units
+        seg = signal.reshape(tuple(signal.shape[:-1]) + (units, ns))
+        windowed = seg * _window(window_type, ns, signal, windows)
+        out.append(_autocorrelation_plain(windowed, lags))
+    return out
+
+
 def fit_unit_lpc(
     signal: torch.Tensor, num_units: int, order_per_unit: int,
     regular_term, windows: dict | None = None,
@@ -209,13 +284,18 @@ def fit_unit_lpc(
     ordering (linne_network.c:310-316: h[0] oldest ... h[np-1] newest).
     `windows` keeps the Welch windows (see _window).
     """
-    n = signal.shape[-1]
-    ns = n // num_units
-    seg = signal.reshape(tuple(signal.shape[:-1]) + (num_units, ns))
-    windowed = seg * _window(WINDOW_WELCH, ns, signal, windows)
-    ac = autocorrelation(windowed, order_per_unit + 1)
-    ridge = 1.0 + torch.as_tensor(regular_term, dtype=signal.dtype,
-                                  device=signal.device)
+    ac, = unit_autocorrelations(signal, [(num_units, order_per_unit + 1)],
+                                WINDOW_WELCH, windows)
+    return _unit_lpc(ac, signal.shape[-1] // num_units, regular_term)
+
+
+def _unit_lpc(ac: torch.Tensor, ns: int, regular_term) -> torch.Tensor:
+    """fit_unit_lpc from a candidate's ac [..., units, order_per_unit + 1]
+    (units of ns samples): the ridge on lag 0, the recursion, zero
+    coefficients for a degenerate split, the reversed layout."""
+    order_per_unit = ac.shape[-1] - 1
+    ridge = 1.0 + torch.as_tensor(regular_term, dtype=ac.dtype,
+                                  device=ac.device)
     ac = torch.cat([(ac[..., 0] * ridge).unsqueeze(-1), ac[..., 1:]], dim=-1)
     lpc = levinson_durbin(ac, order_per_unit)
     if ns < order_per_unit:  # degenerate split -> zero coefficients
@@ -345,15 +425,19 @@ def fit_layer(signal: torch.Tensor, order: int, regular_term,
               windows: dict | None = None):
     """Unit-count search + fit for one layer over a batched signal.
 
-    Fits every candidate split, scores mean |residual| excluding sample
+    Fits every candidate split (their autocorrelations from one
+    `unit_autocorrelations` call), scores mean |residual| excluding sample
     0 (linne_network.c:319-337), picks the first minimum
     (`unit_residual_select`). Returns (log2_units[...], flat_params[...,
     order], residual[..., n], loss[...]). `windows` keeps the Welch
     windows (see _window).
     """
-    units = candidate_units(order, signal.shape[-1])
-    params = [fit_unit_lpc(signal, u, order // u, regular_term, windows)
-              for u in units]
+    n = signal.shape[-1]
+    units = candidate_units(order, n)
+    acs = unit_autocorrelations(signal, [(u, order // u + 1) for u in units],
+                                WINDOW_WELCH, windows)
+    params = [_unit_lpc(ac, n // u, regular_term)
+              for ac, u in zip(acs, units)]
     return unit_residual_select(signal, params, units)
 
 
@@ -522,8 +606,8 @@ def estimate_code_length(
     (reference: lpc.c:810-865). signal: [..., n] normalized float;
     `windows` keeps the sine window (see _window)."""
     n = signal.shape[-1]
-    windowed = signal * _window(WINDOW_SIN, n, signal, windows)
-    ac = autocorrelation(windowed, order + 1)
+    ac = unit_autocorrelations(signal, [(1, order + 1)], WINDOW_SIN,
+                               windows)[0][..., 0, :]
     _, parcor = levinson_durbin(ac, order, with_parcor=True)
     power = ac[..., 0] * 2.0 ** (2.0 * (bits_per_sample - 1))
     log2_power = torch.log2(torch.clamp(power, min=1e-300)) - np.log2(n)

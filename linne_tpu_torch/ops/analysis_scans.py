@@ -1,18 +1,21 @@
-"""The serial loops of the batched encode, its layer fits' residual pass,
-and the byte-exact fit's quantizer, as CUDA kernels.
+"""The serial loops of the batched encode, its layer fits' windowed
+autocorrelation and residual pass, and the byte-exact fit's quantizer, as
+CUDA kernels.
 
 The JAX package runs three recursions of its default encode as
 `lax.scan` loops inside jitted stages (linne_tpu/ops/analysis.py
 `levinson_durbin`, `quantize_coefficients`; linne_tpu/ops/intops.py
-`_predict_dense`), the residual pass of each layer's unit-count sweep as
-XLA ops (linne_tpu/ops/analysis.py `fit_layer`: every candidate split's
-residual, its loss and the first-minimum pick), and the byte-exact fit's
-quantizer as a loop over the taps (linne_tpu/ops/exact_device.py
-`_quantize_layer`). Eager torch would dispatch a dozen ops for every step
-of each; here each is one launch of a hand-written kernel
-(csrc/analysis_scans.cu). The plain torch versions stay in
-ops/analysis.py (`_levinson_durbin_plain`, `_quantize_coefficients_plain`,
-`_quantize_layers_plain`, `_unit_residual_select_plain`), ops/intops.py
+`_predict_dense`), each layer's Welch-windowed autocorrelation and the
+residual pass of its unit-count sweep as XLA ops (linne_tpu/ops/analysis.py
+`fit_unit_lpc` and `autocorrelation`: every candidate split's windowing
+and lags; `fit_layer`: every candidate split's residual, its loss and the
+first-minimum pick), and the byte-exact fit's quantizer as a loop over the
+taps (linne_tpu/ops/exact_device.py `_quantize_layer`). Eager torch would
+dispatch a dozen ops for every step of each; here each is one launch of a
+hand-written kernel (csrc/analysis_scans.cu). The plain torch versions
+stay in ops/analysis.py (`_levinson_durbin_plain`,
+`_quantize_coefficients_plain`, `_quantize_layers_plain`,
+`_unit_autocorrelations_plain`, `_unit_residual_select_plain`), ops/intops.py
 (`_predict_dense_plain`) and ops/exact_device.py (`_quantize_layer_plain`,
 `_quantize_layers_plain`), whose public functions send a CPU tensor to the
 plain version and a CUDA tensor here. There is no fallback from one to the
@@ -31,7 +34,8 @@ for one layer), the byte-exact fit's as "quantize_layer"
 The quantizer and the predict cascade are bit-equal to their plain
 versions, and so are the residual pass's residuals to the loop route's
 (ops/analysis.py `_unit_forward_loop`); its loss sums the same terms in
-another order. The recursion takes each step's numerator in Schur form (the
+another order. The autocorrelation's windowed samples are the plain
+version's bits and its lags sum them in another order. The recursion takes each step's numerator in Schur form (the
 forward and backward correlations updated elementwise, no sum), so it
 agrees with its plain version to rounding, deterministically and wherever
 a row sits in the batch.
@@ -47,7 +51,7 @@ from . import _kernels
 
 # the batched encoder's kernels, then the byte-exact fit's quantizer
 KERNELS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
-           "unit_residual_select", "quantize_layer")
+           "unit_residual_select", "lpc_autocorr", "quantize_layer")
 
 # Launches of each kernel since import (or since a caller reset them);
 # incremented only where the kernel is launched.
@@ -60,8 +64,12 @@ KERNEL_MAX_ORDER = 128
 # The layers one quantizer launch takes (the format's presets have 2-3).
 QUANTIZE_MAX_LAYERS = 4
 
-# The candidate splits one residual pass takes: unit counts 1, 2, ..., 128.
+# The candidate splits one residual pass or autocorrelation launch takes:
+# unit counts 1, 2, ..., 128.
 UNIT_MAX_CANDIDATES = 8
+
+# The lags one autocorrelation launch forms a unit: lags 0..128.
+AUTOCORR_MAX_LAGS = KERNEL_MAX_ORDER + 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +81,7 @@ _SIGNATURES = {
     "predict_dense": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
     "unit_residual_select": [_P, _L, _L, _P, _P, _I, _I, _I, _L, _P, _P, _P,
                              _P, _P],
+    "lpc_autocorr": [_P, _L, _L, _I, _P, _P, _P, _I, _P, _P],
     "ddiv_probe": [ctypes.c_double, _I, _P, _P, _P],
 }
 _fns: dict = {}
@@ -376,6 +385,65 @@ def unit_residual_select(x: torch.Tensor, params, log2u):
                 per_ridge, ptrs, l2, count, order, n, rows, res.data_ptr(),
                 flat.data_ptr(), loss.data_ptr(), best.data_ptr())
     return best, flat, res, loss
+
+
+def lpc_autocorr(x: torch.Tensor, splits):
+    """x [rows, n] float64 (each row's samples contiguous, the rows at any
+    stride); splits: 1..8 candidates (log2u, lags, window), 2^log2u units
+    (log2u 0..7, dividing n) of n >> log2u samples, each multiplied by
+    `window` (float64 [n >> log2u] contiguous on x's device, or None: no
+    window), and lags 1..129 -> one [rows, 2^log2u, lags] float64 tensor a
+    candidate (views of one output): every unit's ac[l] = sum_t xw[t] *
+    xw[t + l], all candidates in one launch. The windowed samples are the
+    bits of `seg * window`; the sums are within rounding of
+    ops/analysis.py:_unit_autocorrelations_plain, the same bits run to run
+    and wherever a row sits."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float64:
+        raise ValueError("x must be a torch.float64 tensor")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [rows, n], got {tuple(x.shape)}")
+    rows, n = x.shape
+    if (n > 1 and x.stride(1) != 1) or x.stride(0) < 0:
+        raise ValueError("x: a row's samples must be contiguous")
+    if not 1 <= n <= 1 << 30:
+        raise ValueError(f"n = {n} outside 1..2^30")
+    splits = [(int(l2), int(lags), w) for l2, lags, w in splits]
+    if not 1 <= len(splits) <= UNIT_MAX_CANDIDATES:
+        raise ValueError(f"{len(splits)} candidates: a launch takes "
+                         f"1..{UNIT_MAX_CANDIDATES}")
+    for i, (l2, lags, w) in enumerate(splits):
+        if not 0 <= l2 <= 7 or n % (1 << l2):
+            raise ValueError(f"candidate {i}: 2^{l2} units must divide n = "
+                             f"{n}")
+        if not 1 <= lags <= AUTOCORR_MAX_LAGS:
+            raise ValueError(f"candidate {i}: {lags} lags outside 1.."
+                             f"{AUTOCORR_MAX_LAGS}")
+        if w is None:
+            continue
+        if not isinstance(w, torch.Tensor) or w.dtype != torch.float64:
+            raise ValueError(f"window {i} must be a torch.float64 tensor")
+        if w.shape != (n >> l2,) or not w.is_contiguous():
+            raise ValueError(f"window {i} must be [{n >> l2}] contiguous, "
+                             f"got {tuple(w.shape)}")
+        if w.device != x.device:
+            raise ValueError(f"window {i} is on {w.device}, expected "
+                             f"{x.device}")
+    _check_device(x.device)
+    widths = [(1 << l2) * lags for l2, lags, _ in splits]
+    out = torch.empty((rows, sum(widths)), dtype=x.dtype, device=x.device)
+    if rows:
+        count = len(splits)
+        wins = (ctypes.c_void_p * count)(
+            *(None if w is None else w.data_ptr() for _, _, w in splits))
+        l2s = (ctypes.c_int * count)(*(l2 for l2, _, _ in splits))
+        lag_counts = (ctypes.c_int * count)(*(lg for _, lg, _ in splits))
+        _launch("lpc_autocorr", x.device, x.data_ptr(), x.stride(0), rows,
+                n, wins, l2s, lag_counts, count, out.data_ptr())
+    views, col = [], 0
+    for (l2, lags, _), width in zip(splits, widths):
+        views.append(out[:, col:col + width].unflatten(1, (1 << l2, lags)))
+        col += width
+    return views
 
 
 def levinson_lanes(order: int) -> int:

@@ -32,6 +32,8 @@ from linne_tpu.ops import intops as JI
 from linne_tpu_torch.ops import analysis as A
 from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import intops as I
+from linne_tpu_torch.ops.windows import (WINDOW_RECTANGULAR, WINDOW_SIN,
+                                         WINDOW_WELCH, window_weights)
 from linne_tpu_torch.presets import PRESETS
 from torch_levinson_model import lanes_for, levinson_schur
 
@@ -370,13 +372,30 @@ def test_predict_dense_plain_matches_jax(order, choices):
 # -- unit_residual_select: the residual pass of a layer's unit sweep --------
 
 
+def _old_fit_unit_lpc(signal, num_units, order_per_unit, regular_term):
+    """fit_unit_lpc as it was before its autocorrelation had a kernel: the
+    Welch window a unit, `autocorrelation`, the ridge, the recursion."""
+    n = signal.shape[-1]
+    ns = n // num_units
+    seg = signal.reshape(tuple(signal.shape[:-1]) + (num_units, ns))
+    windowed = seg * _t(window_weights(WINDOW_WELCH, ns))
+    ac = A.autocorrelation(windowed, order_per_unit + 1)
+    ridge = 1.0 + torch.as_tensor(regular_term, dtype=signal.dtype)
+    ac = torch.cat([(ac[..., 0] * ridge).unsqueeze(-1), ac[..., 1:]], dim=-1)
+    lpc = A.levinson_durbin(ac, order_per_unit)
+    if ns < order_per_unit:
+        lpc = torch.zeros_like(lpc)
+    return torch.flip(lpc, [-1])
+
+
 def _old_fit_layer(signal, order, regular_term):
-    """fit_layer as it was before its residual pass had a kernel: each
-    candidate fitted, run and folded in one loop."""
+    """fit_layer as it was before its residual pass and its
+    autocorrelation had kernels: each candidate fitted, run and folded in
+    one loop."""
     n = signal.shape[-1]
     best_loss = best_flat = best_res = best_log2u = None
     for u in A.candidate_units(order, n):
-        params = A.fit_unit_lpc(signal, u, order // u, regular_term)
+        params = _old_fit_unit_lpc(signal, u, order // u, regular_term)
         res = A.unit_forward(signal, params, u)
         loss = torch.sum(torch.abs(res[..., 1:]), dim=-1) / n
         flat = params.reshape(tuple(params.shape[:-2]) + (order,))
@@ -409,7 +428,7 @@ def _ridge_signal(ridges, n, seed):
     return sig, rv
 
 
-@pytest.mark.parametrize("order", [4, 16, 32, 128])
+@pytest.mark.parametrize("order", [2, 4, 16, 32, 128])
 def test_unit_residual_plain_gives_old_fit_layer(order):
     """fit_layer on the CPU (every candidate fitted, then
     `_unit_residual_select_plain`) gives the outputs of the loop it
@@ -491,6 +510,143 @@ def test_unit_residual_plain_degenerate_split():
     assert log2u.tolist() == [2, 0]
     assert loss[0] == other[3][0] < own[0] and loss[1] == own[1]
     assert torch.equal(res[1], x[1]) and not torch.any(flat[1])
+
+
+# -- unit_autocorrelations: the layer fits' windowed autocorrelation ---------
+
+
+def _autocorr_signal(lead, n, seed):
+    """Noise and a tone a row at the scale of normalized samples; the first
+    row all zero (silent)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    x = (rng.normal(0, 0.02, lead + (n,))
+         + 0.3 * np.sin(2 * np.pi * rng.uniform(0.001, 0.1, lead + (1,))
+                        * t))
+    x.reshape(-1, n)[0] = 0.0
+    return _t(x)
+
+
+def _old_unit_ac(signal, units, lags, window_type):
+    """A candidate's ac as fit_unit_lpc and estimate_code_length formed it
+    before the kernel: the units times the window, then
+    `autocorrelation`."""
+    n = signal.shape[-1]
+    if window_type == WINDOW_SIN:  # the estimate windowed the whole row
+        return A.autocorrelation(signal * _t(window_weights(WINDOW_SIN, n)),
+                                 lags).unsqueeze(-2)
+    ns = n // units
+    seg = signal.reshape(tuple(signal.shape[:-1]) + (units, ns))
+    return A.autocorrelation(seg * _t(window_weights(window_type, ns)), lags)
+
+
+@pytest.mark.parametrize("order", [2, 4, 16, 32, 128])
+def test_unit_autocorrelations_plain_gives_old_ac(order):
+    """On the CPU, every candidate split's ac at n = 10240 (over an
+    expanded ridge axis, as pre_stage gives the first layer, with a silent
+    row) and the block-type estimate's are the bits fit_unit_lpc and
+    estimate_code_length formed before, and launch nothing."""
+    before = dict(AS.KERNEL_LAUNCHES)
+    sig = _autocorr_signal((2, 2), 10240, order)
+    x = sig.unsqueeze(0).expand((4,) + tuple(sig.shape))
+    splits = [(u, order // u + 1) for u in A.candidate_units(order, 10240)]
+    got = A.unit_autocorrelations(x, splits, WINDOW_WELCH)
+    for (u, lags), g in zip(splits, got):
+        want = _old_unit_ac(x, u, lags, WINDOW_WELCH)
+        assert g.shape == x.shape[:-1] + (u, lags)
+        assert np.array_equal(_bits(g.numpy()), _bits(want.numpy()))
+        assert not torch.any(g[:, 0, 0])
+    est, = A.unit_autocorrelations(sig, [(1, order + 1)], WINDOW_SIN)
+    want = _old_unit_ac(sig, 1, order + 1, WINDOW_SIN)
+    assert np.array_equal(_bits(est.numpy()), _bits(want.numpy()))
+    assert AS.KERNEL_LAUNCHES == before
+
+
+def test_unit_autocorrelations_plain_degenerate_split():
+    """Units shorter than their lags (n = 64 at order 128): the bits
+    fit_unit_lpc formed before; the lags past a unit zero up to the FFT
+    route's rounding."""
+    sig = _autocorr_signal((3,), 64, 5)
+    splits = [(1, 129), (2, 65), (4, 33)]
+    for (u, lags), g in zip(splits, A.unit_autocorrelations(
+            sig, splits, WINDOW_WELCH)):
+        assert np.array_equal(_bits(g.numpy()), _bits(_old_unit_ac(
+            sig, u, lags, WINDOW_WELCH).numpy()))
+        assert torch.all(g[..., 64 // u:].abs() <= 1e-12 * g[..., :1].abs())
+
+
+@pytest.mark.parametrize("order", [4, 128])
+def test_fit_unit_lpc_and_estimate_give_old_outputs(order):
+    """fit_unit_lpc (the -a path's one candidate a call) and
+    estimate_code_length give their old bits on the CPU."""
+    sig = _autocorr_signal((2, 2), 10240, order + 1)
+    rv = _t(np.array([2.0 ** -9, 0.0])).reshape(2, 1, 1)
+    for u in A.candidate_units(order, 10240)[::3]:
+        got = A.fit_unit_lpc(sig, u, order // u, rv, {})
+        want = _old_fit_unit_lpc(sig, u, order // u, rv)
+        assert np.array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    got = A.estimate_code_length(sig, order, 16, {})
+    windowed = sig * _t(window_weights(WINDOW_SIN, 10240))
+    ac = A.autocorrelation(windowed, order + 1)
+    _, parcor = A.levinson_durbin(ac, order, with_parcor=True)
+    power = ac[..., 0] * 2.0 ** 30
+    log2_var = torch.sum(torch.log2(torch.clamp(
+        1.0 - parcor[..., 1:] ** 2, min=1e-30)), dim=-1)
+    est = 1.9426950408889634 + 0.5 * (
+        torch.log2(torch.clamp(power, min=1e-300)) - np.log2(10240)
+        + log2_var)
+    want = torch.where(power == 0.0, 0.0, torch.where(est <= 0, 1.0, est))
+    assert np.array_equal(_bits(got.numpy()), _bits(want.numpy()))
+
+
+@pytest.mark.parametrize("expanded", [True, False])
+def test_unit_autocorrelations_launch_reads_each_row_once(expanded,
+                                                          monkeypatch):
+    """The launch side's shapes on the CPU, with the kernel's wrapper
+    replaced by the plain sums: an expanded ridge axis goes to the wrapper
+    once (B x C rows, not R x B x C) and comes back expanded over it;
+    each candidate's window is the table `_window` keeps, of n / u taps;
+    the results are the plain version's."""
+    seen = []
+
+    def fake(x, splits):
+        seen.append((tuple(x.shape), [(l2, lags, tuple(w.shape))
+                                      for l2, lags, w in splits]))
+        n = x.shape[-1]
+        out = []
+        for l2, lags, w in splits:
+            seg = x.reshape(x.shape[0], 1 << l2, n >> l2) * w
+            out.append(A._autocorrelation_plain(seg, lags))
+        return out
+
+    monkeypatch.setattr(AS, "lpc_autocorr", fake)
+    sig = _autocorr_signal((3, 2), 2048, 7)
+    x = (sig.unsqueeze(0).expand((4,) + tuple(sig.shape)) if expanded
+         else _autocorr_signal((4, 3, 2), 2048, 8))
+    splits = [(u, 32 // u + 1) for u in A.candidate_units(32, 2048)]
+    windows = {}
+    got = A._unit_autocorrelations_launch(x, splits, WINDOW_WELCH, windows)
+    rows = 6 if expanded else 24
+    assert seen == [((rows, 2048), [((u - 1).bit_length(), lags,
+                                     (2048 // u,)) for u, lags in splits])]
+    assert len(windows) == len(splits)
+    want = A._unit_autocorrelations_plain(x, splits, WINDOW_WELCH)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g.stride(0) == 0) == expanded
+        assert np.array_equal(_bits(g.contiguous().numpy()),
+                              _bits(w.numpy()))
+
+
+def test_autocorrelation_routes_stay_on_the_cpu():
+    """`autocorrelation` on a CPU tensor is its plain routes' bits and
+    launches nothing (the card launches the kernel with no window)."""
+    before = dict(AS.KERNEL_LAUNCHES)
+    x = _autocorr_signal((2, 3), 4096, 9)
+    for lags in (5, 17, 129):
+        assert np.array_equal(_bits(A.autocorrelation(x, lags).numpy()),
+                              _bits(A._autocorrelation_plain(x, lags).numpy()))
+    assert AS.KERNEL_LAUNCHES == before
 
 
 # -- dispatch and the wrappers -------------------------------------------------
@@ -598,6 +754,17 @@ _ARG_CASES = {  # case: the check's words in its message
     "residual order": "order 129",
     "residual units": "2.3 units must divide",
     "residual device": "unsupported device cpu",
+    "autocorr dtype": "x must be a torch.float64",
+    "autocorr shape": "x must be .rows, n.",
+    "autocorr rows": "samples must be contiguous",
+    "autocorr count 0": "0 candidates",
+    "autocorr count 9": "9 candidates",
+    "autocorr units": "2.3 units must divide n = 100",
+    "autocorr lags": "130 lags outside 1..129",
+    "autocorr window dtype": "window 1 must be a torch.float64",
+    "autocorr window taps": "window 0 must be .32. contiguous",
+    "autocorr device": "unsupported device cpu",
+    "autocorr public meta": "unsupported device meta",
 }
 
 
@@ -702,6 +869,29 @@ def test_wrapper_argument_checks(case):
         "residual device": lambda: AS.unit_residual_select(
             torch.zeros(2, 4, 64, dtype=f64), [torch.zeros(8, 8, dtype=f64)],
             [0]),
+        "autocorr dtype": lambda: AS.lpc_autocorr(
+            _meta((4, 64), torch.float32), [(0, 5, None)]),
+        "autocorr shape": lambda: AS.lpc_autocorr(
+            _meta((2, 4, 64), f64), [(0, 5, None)]),
+        "autocorr rows": lambda: AS.lpc_autocorr(
+            _meta((64, 4), f64).t(), [(0, 5, None)]),
+        "autocorr count 0": lambda: AS.lpc_autocorr(_meta((4, 64), f64), []),
+        "autocorr count 9": lambda: AS.lpc_autocorr(
+            _meta((4, 64), f64), [(0, 5, None)] * 9),
+        "autocorr units": lambda: AS.lpc_autocorr(
+            _meta((4, 100), f64), [(0, 5, None), (3, 5, None)]),
+        "autocorr lags": lambda: AS.lpc_autocorr(
+            _meta((4, 256), f64), [(0, 130, None)]),
+        "autocorr window dtype": lambda: AS.lpc_autocorr(
+            _meta((4, 64), f64), [(0, 5, None),
+                                  (1, 5, _meta((32,), torch.float32))]),
+        "autocorr window taps": lambda: AS.lpc_autocorr(
+            _meta((4, 64), f64), [(1, 5, _meta((64,), f64))]),
+        "autocorr device": lambda: AS.lpc_autocorr(
+            torch.zeros(4, 64, dtype=f64),
+            [(1, 5, torch.ones(32, dtype=f64))]),
+        "autocorr public meta": lambda: A.unit_autocorrelations(
+            _meta((2, 3, 64), f64), [(2, 5)], WINDOW_WELCH),
     }
     before = dict(AS.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match=_ARG_CASES[case]):

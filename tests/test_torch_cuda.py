@@ -1324,3 +1324,170 @@ def test_scans_unit_residual_fit_layer_one_launch(monkeypatch):
     assert all(torch.equal(_bits(g) if g.is_floating_point() else g,
                            _bits(w) if w.is_floating_point() else w)
                for g, w in zip(got, again))
+
+
+# -- the layer fits' windowed autocorrelation (lpc_autocorr) -----------------
+#
+# Each windowed sample is the plain version's `seg * window` bits; each lag
+# sums in another order than the plain version's route, so a lag is held
+# to 1e-12 of its unit's lag 0 (the largest |value| a unit has), silent
+# rows to exact zeros, and two launches to the same bits.
+
+_LA_RTOL = 1e-12
+
+
+def _la_signal(lead, n, seed):
+    """Noise and a tone a row, at the scale of normalized samples; the
+    first row all zero (silent)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    x = (rng.normal(0, 0.02, lead + (n,))
+         + 0.3 * np.sin(2 * np.pi * rng.uniform(0.001, 0.1, lead + (1,)) * t))
+    x.reshape(-1, n)[0] = 0.0
+    return torch.from_numpy(x).cuda()
+
+
+def _la_launches(preset, blocks, n=10240):
+    """(what, signal, splits, window type) of each launch of one batch of
+    `blocks` blocks at `preset`: the block-type estimate, then each layer,
+    the first one's input expanded over the ridge terms."""
+    from linne_tpu_torch.ops.windows import WINDOW_SIN, WINDOW_WELCH
+
+    p = PRESETS[preset]
+    ridges = len(p.ridge_terms)
+    sig = _la_signal((blocks, 2), n, preset)
+    out = [("estimate", sig, [(1, p.layer_num_params[0] + 1)], WINDOW_SIN)]
+    for li, order in enumerate(p.layer_num_params):
+        x = (sig.unsqueeze(0).expand((ridges,) + tuple(sig.shape)) if li == 0
+             else _la_signal((ridges, blocks, 2), n, preset + li))
+        out.append((f"layer {li}", x, [(u, order // u + 1) for u in
+                                       A.candidate_units(order, n)],
+                    WINDOW_WELCH))
+    return out
+
+
+def _la_check(signal, splits, window_type, windows=None):
+    """One launch against the plain version: each lag within _LA_RTOL of
+    its unit's lag 0, silent units exactly 0, a second launch the same
+    bits."""
+    windows = {} if windows is None else windows
+    before = AS.KERNEL_LAUNCHES["lpc_autocorr"]
+    got = A.unit_autocorrelations(signal, splits, window_type, windows)
+    torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES["lpc_autocorr"] == before + 1
+    again = A.unit_autocorrelations(signal, splits, window_type, windows)
+    want = A._unit_autocorrelations_plain(signal, splits, window_type,
+                                          windows)
+    for g, a, w, (u, lags) in zip(got, again, want, splits):
+        assert g.shape == w.shape == signal.shape[:-1] + (u, lags)
+        assert torch.equal(_bits(g), _bits(a))
+        scale = w[..., :1].abs()
+        assert torch.all((g - w).abs() <= _LA_RTOL * scale)
+        silent = scale[..., 0] == 0
+        assert torch.all(g[silent] == 0)
+    return got
+
+
+@pytest.mark.parametrize("preset,blocks", [(7, 128), (0, 64)])
+def test_scans_lpc_autocorr_matches_plain_version(preset, blocks):
+    """Every launch of a preset-7 batch of 128 blocks and a preset-0 batch
+    of 64 (the estimate, then each layer, the first expanded over 4 and 1
+    ridge terms): one launch each, the plain version's sums within 1e-12
+    of a unit's lag 0, the silent row's zeros, the same bits twice; the
+    expanded layer's result the same for every ridge term."""
+    _require_card()
+    for what, x, splits, wt in _la_launches(preset, blocks):
+        got = _la_check(x, splits, wt)
+        if x.stride(0) == 0:
+            assert all(g.stride(0) == 0 for g in got), what
+
+
+@pytest.mark.parametrize("n,order,rows,windowed", [
+    (64, 128, 3, True),     # units shorter than their lags: u = 1, 2
+    (32768, 128, 5, True),  # longer than a CTA keeps: chunks
+    (30000, 16, 3, True),   # chunks that cut units
+    (777, 4, 7, True),      # odd n: units at odd strides unpadded
+    (4096, 128, 9, False),  # no window (autocorrelation on the card)
+    (80, 1, 2, True)])      # one lag beyond the first: order 1
+def test_scans_lpc_autocorr_edges(n, order, rows, windowed):
+    """Edge shapes of the kernel's plan against the plain version: units
+    shorter than their lags, rows taken in chunks, odd n, no window; and
+    every row's sums the same bits with the rows reversed."""
+    _require_card()
+    from linne_tpu_torch.ops.windows import WINDOW_RECTANGULAR, WINDOW_WELCH
+
+    x = _la_signal((rows,), n, n + order)
+    splits = [(u, order // u + 1) for u in (1, 2, 4, 8, 16, 32, 64, 128)
+              if n % u == 0 and u <= order and n // u >= 2]
+    wt = WINDOW_WELCH if windowed else WINDOW_RECTANGULAR
+    got = _la_check(x, splits, wt)
+    flip = A.unit_autocorrelations(x.flip(0), splits, wt, {})
+    assert all(torch.equal(_bits(g), _bits(f.flip(0)))
+               for g, f in zip(got, flip))
+    if not windowed:
+        ac = A.autocorrelation(x, order + 1)
+        assert torch.equal(_bits(ac), _bits(got[0][:, 0]))
+
+
+@pytest.mark.parametrize("preset", [7, 0])
+def test_scans_lpc_autocorr_fit_layer_one_launch(preset, monkeypatch):
+    """fit_layer and estimate_code_length on the card launch the kernel
+    once a layer (and once for the estimate), reach neither the plain
+    routes nor `_autocorr_matmul`, and run no ATen GEMM."""
+    _require_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def refused(*args):
+        raise AssertionError("an autocorrelation route reached on the card")
+
+    monkeypatch.setattr(A, "_autocorrelation_plain", refused)
+    monkeypatch.setattr(A, "_autocorr_matmul", refused)
+    p = PRESETS[preset]
+    sig = _la_signal((8, 2), 10240, 3)
+    rv = torch.tensor(p.ridge_terms, dtype=torch.float64,
+                      device="cuda").reshape(-1, 1, 1, 1)
+    before = AS.KERNEL_LAUNCHES["lpc_autocorr"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        A.estimate_code_length(sig, p.layer_num_params[0], 16, {})
+        x = sig.unsqueeze(0).expand((len(p.ridge_terms),) + tuple(sig.shape))
+        for order in p.layer_num_params:
+            x = A.fit_layer(x, order, rv, {})[2]
+        torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES["lpc_autocorr"] == (
+        before + 1 + len(p.layer_num_params))
+    gemm = [ev.key for ev in prof.key_averages()
+            if ev.key in ("aten::mm", "aten::bmm", "aten::matmul",
+                          "aten::einsum", "aten::addmm")
+            or (ev.device_type == DeviceType.CUDA
+                and "gemm" in ev.key.lower())]
+    assert not gemm, gemm
+
+
+@pytest.mark.parametrize("preset", [7, 0])
+def test_scans_lpc_autocorr_fit_layer_matches_cpu(preset):
+    """fit_layer on the card picks the CPU's unit counts and quantized
+    coefficients, layer by layer on the test tracks (each layer's input
+    the CPU's residual), over the preset's ridge terms."""
+    _require_card()
+    p = PRESETS[preset]
+    n = 10240
+    tracks = [_track(3 * n, seed) for seed in (preset, preset + 1)]
+    blocks = np.stack([t[:, b * n:(b + 1) * n] for t in tracks
+                       for b in range(3)])
+    sig = I.normalize_to_float(torch.from_numpy(blocks), 16, torch.float64)
+    rv = torch.tensor(p.ridge_terms, dtype=torch.float64).reshape(-1, 1, 1,
+                                                                  1)
+    lead = (len(p.ridge_terms),) + tuple(sig.shape)
+    x, x_card = sig.unsqueeze(0).expand(lead), sig.cuda().unsqueeze(0).expand(
+        lead)
+    for order in p.layer_num_params:
+        cpu = A.fit_layer(x, order, rv)
+        card = A.fit_layer(x_card, order, rv.cuda(), {})
+        assert torch.equal(card[0].cpu(), cpu[0])
+        for got, want in zip(A.quantize_coefficients(card[1]),
+                             A.quantize_coefficients(cpu[1])):
+            assert torch.equal(got.cpu(), want)
+        x = cpu[2]
+        x_card = x.cuda()
