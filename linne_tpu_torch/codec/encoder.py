@@ -7,12 +7,14 @@ transform, pre-emphasis; one unit x ridge sweep per layer; ridge selection;
 with `-a N` an IRLS refit of each layer under the winning ridge
 (ops/afmethod.py), with `-l` momentum training of the whole cascade
 (ops/training.py); quantization, integer predict cascade and Rice parameter
-search); the host then only packs bits with the native library. On a
-CUDA device the chain runs as two CUDA graphs a shape (codec/graphs.py,
-the counterpart of the reference's jitted stages), eager at a shape's
-first batches, then captured and replayed: G1 (pre-processing, the layer
-sweeps, ridge selection) and G2 (quantization to the packed result), with
-`-a N` and `-l` run eagerly between them. The CPU runs the chain eagerly.
+search); the host then only packs bits with the native host library
+(native.py), which the encoder requires: it is built with g++ at first
+use, and a missing one raises at construction. On a CUDA device the chain
+runs as two CUDA graphs a shape (codec/graphs.py, the counterpart of the
+reference's jitted stages), eager at a shape's first batches, then
+captured and replayed: G1 (pre-processing, the layer sweeps, ridge
+selection) and G2 (quantization to the packed result), with `-a N` and
+`-l` run eagerly between them. The CPU runs the chain eagerly.
 
 Emitted streams are always losslessly decodable by the reference decoder
 (integer predict/Rice semantics are wire-exact, and the residual is
@@ -63,18 +65,13 @@ from ..constants import (
     LOG2_NUM_UNITS_BITWIDTH,
     LPC_COEF_BITWIDTH,
     NUM_PREEMPH_FILTERS,
-    PREEMPH_COEF_SHIFT,
-    RSHIFT_BITWIDTH,
     TRAINING_LEARNING_RATE,
     TRAINING_LOSS_EPSILON,
     TRAINING_MAX_NUM_ITERATIONS,
 )
-from ..format.bitstream import BitWriter
 from ..format.block import frame_block, write_raw_payload
 from ..format.header import LinneHeader
 from ..format.huffman import get_codebook
-from ..format.rice import encode_plane_with_params
-from ..format.zigzag import zigzag_encode_array, zigzag_encode_scalar
 from ..presets import PRESETS
 
 from ..ops import ANALYSIS_DTYPE
@@ -155,7 +152,11 @@ class TorchEncoder:
         every dispatched batch's rows split over it, one contiguous shard
         per entry; blocks are independent, so the bytes equal the
         one-device encode's. batch_blocks is rounded up to a multiple of
-        its length."""
+        its length.
+
+        Raises RuntimeError when the native host library cannot be built
+        or loaded: the drain unpacks and packs every block with it."""
+        native.lib()
         self.devices = resolve_devices(device, devices)
         self.config = config or EncoderConfig()
         self.config.validate()
@@ -420,31 +421,10 @@ class TorchEncoder:
         """All side arrays are per-block [C, ...] int32; residual [C, n]."""
         p = self.parameter
         orders = self.preset.layer_num_params
-        if native.available():
-            return native.pack_compress_payload(
-                residual_b, coefs, log2u, rshift, pprev, pcoef, porder, k2s,
-                self.codebook.codes_array, self.codebook.lens_array,
-                p.bits_per_sample, np.asarray(orders, dtype=np.int32))
-        w = BitWriter()
-        for ch in range(p.num_channels):
-            for stage in range(NUM_PREEMPH_FILTERS):
-                w.put(zigzag_encode_scalar(int(pprev[ch, stage])),
-                      p.bits_per_sample + 1)
-                w.put(int(pcoef[ch, stage]), PREEMPH_COEF_SHIFT - 1)
-        for ch in range(p.num_channels):
-            base = 0
-            for li in range(self.preset.num_layers):
-                w.put(int(log2u[ch, li]), LOG2_NUM_UNITS_BITWIDTH)
-                w.put(int(rshift[ch, li]), RSHIFT_BITWIDTH)
-                layer_coefs = coefs[ch, base : base + orders[li]]
-                base += orders[li]
-                for u in zigzag_encode_array(layer_coefs).tolist():
-                    self.codebook.put(w, u)
-        for ch in range(p.num_channels):
-            encode_plane_with_params(
-                w, residual_b[ch], int(porder[ch]), k2s[ch])
-        w.flush()
-        return w.getvalue()
+        return native.pack_compress_payload(
+            residual_b, coefs, log2u, rshift, pprev, pcoef, porder, k2s,
+            self.codebook.codes_array, self.codebook.lens_array,
+            p.bits_per_sample, np.asarray(orders, dtype=np.int32))
 
     # -- public API ---------------------------------------------------------
 
@@ -787,26 +767,6 @@ class TorchEncoder:
             return w.view(np.int8).astype(np.int32)
         return w.astype(np.int32)
 
-    @staticmethod
-    def _unpack_res(words: np.ndarray, width: int) -> np.ndarray:
-        """[..., ceil(n/g)*wpg] int32 words -> [..., >=n] int32 samples:
-        the numpy inverse of ops/bitpack.py:pack_plane_words (the native
-        library's unpack_bits is the fast one)."""
-        g, wpg = pack_geometry(width)
-        w = np.ascontiguousarray(words).view(np.uint32)
-        w = w.reshape(words.shape[:-1] + (-1, wpg))
-        out = np.empty(w.shape[:-1] + (g,), np.uint32)
-        for j in range(g):
-            k, off = divmod(j * width, 32)
-            v = w[..., k] >> np.uint32(off)
-            if off + width > 32:
-                v = v | (w[..., k + 1] << np.uint32(32 - off))
-            out[..., j] = v
-        out &= (1 << width) - 1
-        res = out.reshape(words.shape[:-1] + (-1,)).astype(np.int32)
-        sign = 1 << (width - 1)
-        return (res ^ sign) - sign
-
     def _drain_batch(self, out, blocks: np.ndarray, n: int, real: int,
                      W: int) -> List[bytes]:
         """Wait for one dispatched batch's packed shards to reach the host
@@ -856,11 +816,8 @@ class TorchEncoder:
                 GIL), or its fetched int32 rows."""
                 if b in full:
                     return full[b][:, :n]
-                if native.available():
-                    g, _ = pack_geometry(W)
-                    return native.unpack_bits(words[b], W,
-                                              _roundup(n, g))[:, :n]
-                return self._unpack_res(words[b], W)[:, :n]
+                g, _ = pack_geometry(W)
+                return native.unpack_bits(words[b], W, _roundup(n, g))[:, :n]
 
             with span("encode.drain.pack"):
                 pprev = side[..., 3 : 3 + NUM_PREEMPH_FILTERS]
@@ -893,7 +850,7 @@ class TorchEncoder:
                 # blocks pack independently; the native payload packer runs
                 # without the GIL, so thread on multicore hosts
                 ncpu = os.cpu_count() or 1
-                if real > 1 and ncpu > 1 and native.available():
+                if real > 1 and ncpu > 1:
                     with ThreadPoolExecutor(max_workers=min(ncpu, 8)) as ex:
                         return list(ex.map(pack_one, range(real)))
                 return [pack_one(b) for b in range(real)]

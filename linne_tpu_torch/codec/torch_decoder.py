@@ -1,13 +1,15 @@
 """Batched decoder on torch tensors: corpus-scale reconstruction.
 Counterpart of linne_tpu/codec/tpu_decoder.py:TpuDecoder.
 
-The host (native library) does the serial entropy decode of every block.
-The reconstruction IIR cascade — the decode hot loop — then runs as
-batched `synthesize_rows` launches over ALL (stream, block, channel, unit)
+The host does the serial entropy decode of every block with the native
+host library (native.py), which the decoder requires: it is built with g++
+at first use, and a missing one raises at construction. The
+reconstruction IIR cascade — the decode hot loop — then runs as batched
+`synthesize_rows` launches over ALL (stream, block, channel, unit)
 segments at once, grouped per layer by (units, samples per unit, taps per
 unit): each group is gathered from one int32 tensor R with index_select,
 synthesized by the CUDA kernel, and scattered back with index_copy_.
-De-emphasis and the MS inverse run in the native library (or numpy).
+De-emphasis and the MS inverse run in the native library.
 
 `decode_many` pools the rows of a whole corpus into the same launches, so
 a launch carries more independent recurrences as the corpus grows. With a
@@ -43,7 +45,6 @@ import numpy as np
 import torch
 
 from .. import native
-from .encoder import TorchEncoder
 from .params import DecoderConfig
 from ..constants import (
     BLOCK_TYPE_RAW,
@@ -121,7 +122,12 @@ class TorchDecoder:
         (parallel/mesh.py): each block-length group's rows are split over
         it, a contiguous shard of whole blocks per entry; rows are
         independent through every layer's synthesis, so the output equals
-        the one-device decode's."""
+        the one-device decode's.
+
+        Raises RuntimeError when the native host library cannot be built
+        or loaded: it unpacks every compressed payload and the download,
+        and assembles the output planes."""
+        native.lib()
         self.devices = resolve_devices(device, devices)
         self.config = config or DecoderConfig()
         self.header = None
@@ -174,16 +180,12 @@ class TorchDecoder:
                 channels, _ = read_raw_payload(payload, nch, n, bps)
                 blocks.append((progress, n, "raw", np.stack(channels)))
             else:
-                if native.available():
-                    try:
-                        unpacked = native.unpack_compress_payload(
-                            payload, cb.node0_array, cb.node1_array, cb.root,
-                            cb.num_symbols, nch, n, bps, orders)
-                    except native.StreamDecodeError as e:
-                        raise FormatError(str(e)) from e
-                else:
-                    unpacked = self._unpack_payload_py(
-                        payload, nch, n, bps, preset.layer_num_params, cb)
+                try:
+                    unpacked = native.unpack_compress_payload(
+                        payload, cb.node0_array, cb.node1_array, cb.root,
+                        cb.num_symbols, nch, n, bps, orders)
+                except native.StreamDecodeError as e:
+                    raise FormatError(str(e)) from e
                 blocks.append((progress, n, "compress", unpacked))
             offset += bh.total_size
             progress += n
@@ -195,43 +197,7 @@ class TorchDecoder:
                 f"{header.num_samples} samples")
         return header, orders, blocks
 
-    @staticmethod
-    def _unpack_payload_py(payload, nch, n, bps, layer_num_params, cb):
-        """Pure-python compress-payload unpack in the same tuple layout as
-        native.unpack_compress_payload (no-compiler fallback)."""
-        from ..format.block import read_compress_payload
-
-        side, residual_list, consumed = read_compress_payload(
-            payload, nch, n, bps, layer_num_params, cb)
-        residuals = np.stack(residual_list)
-        coefs = np.stack([
-            np.concatenate(side.coefs[ch]).astype(np.int32)
-            for ch in range(nch)])
-        log2u = np.asarray(
-            [[(u - 1).bit_length() for u in side.num_units[ch]]
-             for ch in range(nch)], np.int32)
-        rshifts = np.asarray(side.rshifts, np.int32)
-        pprev = np.asarray(
-            [[pc[0] for pc in side.preemph[ch]] for ch in range(nch)],
-            np.int32)
-        pcoef = np.asarray(
-            [[pc[1] for pc in side.preemph[ch]] for ch in range(nch)],
-            np.int32)
-        return (residuals, coefs, log2u, rshifts, pprev, pcoef, consumed)
-
     # -- device synthesis stage ----------------------------------------------
-
-    def _synthesize_pooled(self, streams) -> dict:
-        """Pooled synthesis materialized per block: {(si, block_idx):
-        planes [nch, n]} of reconstructed (pre-de-emphasis) planes, for the
-        no-native assemble path."""
-        planes = {}
-        nch = streams[0][1].num_channels if streams else 0
-        for n, host_R, members in self._synthesize_pooled_rows(streams):
-            for pos, (si, i) in enumerate(members):
-                planes[(si, i)] = np.ascontiguousarray(
-                    host_R[pos * nch : (pos + 1) * nch, :n])
-        return planes
 
     def _synthesize_pooled_rows(self, streams) -> list:
         """Run the reversed layer cascade for every compress block of every
@@ -288,11 +254,7 @@ class TorchDecoder:
             stop = start + words.shape[0]
             flags[start:stop] = words[:, 0]
             self.bytes_down += words.nbytes
-            if native.available():
-                native.unpack_bits(words[:, 1:], W, out.shape[1],
-                                   out[start:stop])
-            else:
-                out[start:stop] = TorchEncoder._unpack_res(words[:, 1:], W)
+            native.unpack_bits(words[:, 1:], W, out.shape[1], out[start:stop])
         self.download_chunks += len(chunks)
         wide = np.nonzero(flags)[0]
         if wide.size:
@@ -370,7 +332,7 @@ class TorchDecoder:
 
     @staticmethod
     def _assemble_rows(header, blocks, groups, si) -> List[np.ndarray]:
-        """Native finishing: one GIL-released linne_finish_rows call per
+        """Finishing: one GIL-released linne_finish_rows call per
         (stream, block-length group) scatters the synthesized rows into the
         output planes and runs de-emphasis + MS inverse."""
         nch = header.num_channels
@@ -392,37 +354,6 @@ class TorchDecoder:
                 np.stack([blocks[i][3][5] for _, i in mine]), dtype=np.int32)
             native.finish_rows(host_R, row0, starts, n, pprev, pcoef, out, ms)
         return [out[ch] for ch in range(nch)]
-
-    @staticmethod
-    def _assemble(header, blocks, planes, si) -> List[np.ndarray]:
-        """No-native finishing: de-emphasis + MS inverse per block."""
-        from ..exact.filters import multistage_deemphasis
-
-        nch = header.num_channels
-        out = [np.zeros(header.num_samples, dtype=np.int32)
-               for _ in range(nch)]
-        for idx, (start, n, kind, b) in enumerate(blocks):
-            if kind == "silent":
-                continue
-            if kind == "raw":
-                for ch in range(nch):
-                    out[ch][start : start + n] = b[ch]
-                continue
-            _res, _coefs, _l2, _rs, pprev, pcoef, _c = b
-            plane = planes[(si, idx)]
-            for ch in range(nch):
-                multistage_deemphasis(
-                    plane[ch], n,
-                    ((int(pprev[ch, 0]), int(pcoef[ch, 0])),
-                     (int(pprev[ch, 1]), int(pcoef[ch, 1]))))
-            if header.ch_process_method == CH_PROCESS_MS:
-                m = plane[0]
-                s = plane[1]
-                m -= s >> 1
-                s += m
-            for ch in range(nch):
-                out[ch][start : start + n] = plane[ch]
-        return out
 
     # -- public API ----------------------------------------------------------
 
@@ -450,20 +381,12 @@ class TorchDecoder:
             results: List[Optional[List[np.ndarray]]] = [None] * len(datas)
             for sis in classes.values():
                 streams = [(si,) + parsed[si] for si in sis]
-                if native.available():
-                    groups = self._synthesize_pooled_rows(streams)
-                    with span("decode.assemble"):
-                        for si in sis:
-                            header, _orders, blocks = parsed[si]
-                            results[si] = self._assemble_rows(
-                                header, blocks, groups, si)
-                else:
-                    planes = self._synthesize_pooled(streams)
-                    with span("decode.assemble"):
-                        for si in sis:
-                            header, _orders, blocks = parsed[si]
-                            results[si] = self._assemble(
-                                header, blocks, planes, si)
+                groups = self._synthesize_pooled_rows(streams)
+                with span("decode.assemble"):
+                    for si in sis:
+                        header, _orders, blocks = parsed[si]
+                        results[si] = self._assemble_rows(
+                            header, blocks, groups, si)
             self.header = parsed[-1][0] if parsed else None
             return results
 

@@ -4,8 +4,7 @@ Counterpart of linne_tpu/ops/bitpack.py.
 Sample planes leave the device at a static W bits per sample in two's
 complement, packed into int32 words: the encoder's residual plane behind
 its side columns (codec/encoder.py) and the decoder's reconstruction plane
-(codec/torch_decoder.py). The host-side inverse is native.unpack_bits,
-with TorchEncoder._unpack_res as the numpy fallback.
+(codec/torch_decoder.py). The host-side inverse is native.unpack_bits.
 
 The reference shifts uint32 lanes. torch has no uint32 arithmetic on every
 device, so the fields are placed in int64: no field crosses bit 63, fields

@@ -52,8 +52,7 @@ def _plane(n, seed):
 @pytest.mark.parametrize("width", range(1, 32))
 def test_pack_plane_words_bit_equal_to_jax(width):
     """Every width, ragged lengths; the packed words invert through
-    native.unpack_bits and the numpy _unpack_res to the low `width` bits,
-    sign-extended."""
+    native.unpack_bits to the low `width` bits, sign-extended."""
     assert T.pack_geometry(width) == J.pack_geometry(width)
     g, _wpg = T.pack_geometry(width)
     sign = 1 << (width - 1)
@@ -67,8 +66,6 @@ def test_pack_plane_words_bit_equal_to_jax(width):
         low = ((x.astype(np.int64) & ((1 << width) - 1)) ^ sign) - sign
         back = native.unpack_bits(got, width, -(-n // g) * g)[..., :n]
         assert np.array_equal(back, low)
-        assert np.array_equal(TorchEncoder._unpack_res(got, width)[..., :n],
-                              low)
 
 
 def _param(bps=16, preset=0, cls=EncodeParameter):
@@ -175,23 +172,6 @@ def test_forced_overflow_equals_tpu_encoder(monkeypatch, devices):
     assert enc.overflow_rows == 10
     for data, t in zip(ours, tracks):
         assert np.array_equal(np.stack(Decoder().decode_whole(data)), t)
-
-
-def test_encoder_without_native_library(monkeypatch):
-    """The numpy unpack of the residual plane (_unpack_res) and the Python
-    bit writer give the native path's bytes, overflow rows included."""
-    tracks = _corpus()[1:]
-    chans = [[t[0], t[1]] for t in tracks]
-    lengths = [t.shape[1] for t in tracks]
-    streams = []
-    for available in (True, False):
-        monkeypatch.setattr(native, "available", lambda: available)
-        enc = TorchEncoder(batch_blocks=2, device="cpu")
-        enc.set_encode_parameter(_param())
-        enc._maxw_seen[SPB] = 1  # the narrowest class: every block overflows
-        streams.append(enc.encode_many(chans, lengths))
-        assert enc.overflow_rows > 0
-    assert streams[0] == streams[1]
 
 
 def _wide_stream():

@@ -12,9 +12,11 @@ import torch
 
 from linne_tpu.codec import params as jax_params
 from linne_tpu.codec.encoder import TpuEncoder
+from linne_tpu_torch import native
 from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
 from linne_tpu_torch.codec.params import EncodeParameter
+from linne_tpu_torch.codec.torch_decoder import TorchDecoder
 from linne_tpu_torch.constants import CH_PROCESS_MS
 from linne_tpu_torch.format.header import LinneHeader
 
@@ -128,3 +130,13 @@ def test_learning_and_af_are_taken():
                                   sig)
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("cls", [TorchEncoder, TorchDecoder])
+def test_requires_native_library(monkeypatch, cls):
+    """The batched codec packs, unpacks and assembles every block with the
+    native host library: without it, construction raises, before any
+    device work."""
+    monkeypatch.setattr(native, "_load", lambda: None)
+    with pytest.raises(RuntimeError, match="native"):
+        cls(device="cpu")

@@ -15,7 +15,6 @@ import pytest
 from conftest import REPO_ROOT, WAVEFORMS
 from linne_tpu.codec.decoder import Decoder as JaxDecoder
 from linne_tpu.codec.tpu_decoder import TpuDecoder
-from linne_tpu_torch import native
 from linne_tpu_torch.codec.decoder import Decoder
 from linne_tpu_torch.codec.encoder import TorchEncoder
 from linne_tpu_torch.codec.params import EncodeParameter
@@ -78,16 +77,6 @@ def test_decode_many_equals_decoder_and_tpu_decoder(corpus):
             assert np.array_equal(o[ch], sig[ch])
             assert np.array_equal(o[ch], host[ch])
             assert np.array_equal(o[ch], np.asarray(t[ch]))
-
-
-def test_decode_without_native_library(corpus, monkeypatch):
-    """The no-compiler fallback: pure-Python unpack and finishing."""
-    sigs, datas = corpus
-    monkeypatch.setattr(native, "available", lambda: False)
-    outs = TorchDecoder(device="cpu").decode_many(datas[:2])
-    for sig, out in zip(sigs, outs):
-        for ch in range(sig.shape[0]):
-            assert np.array_equal(out[ch], sig[ch])
 
 
 def test_decode_whole_mono_preset7():
