@@ -69,6 +69,11 @@ Phases (any failure raises and the script exits non-zero):
      lag 0, silent units zero, two launches bit-equal) and timed beside
      the plain version on the card's routes (the pass it replaced) and its
      bound;
+  4d. the Rice parameter search: rice_search's launches in one 128-block
+     batch at presets 7 and 0 (one a batch), then each preset's call
+     (256 rows of 10,240 residuals) against its plain version (orders and
+     parameters bit for bit) and timed beside the plain version (the
+     torch ops it replaced) and its bound;
   5. decode groups: every (rows, ns, npu) launch of that decode, recorded
      in a second decode, checked bit for bit against the plain version and
      timed (CUDA events) beside its bound; then one decode under
@@ -240,6 +245,7 @@ from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import bitpack
 from linne_tpu_torch.ops import exact_device as ED
 from linne_tpu_torch.ops import intops as I
+from linne_tpu_torch.ops import rice_search as R
 from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import synthesis as S
 from linne_tpu_torch.ops import training
@@ -470,6 +476,7 @@ TRACE_KERNELS = {"levinson_durbin": "levinson_kernel",
                  "predict_dense": "predict_kernel",
                  "unit_residual_select": "unit_residual_kernel",
                  "lpc_autocorr": "lpc_autocorr_kernel",
+                 "rice_search": "rice_search_kernel",
                  "synthesize_rows": "synth_rows_kernel"}
 
 
@@ -713,32 +720,43 @@ def lpc_autocorr_plain(x, splits):
     return out
 
 
+def rice_search_plain(x, max_porder):
+    """AS.rice_search's call through its plain version (the torch ops the
+    kernel replaced), in the wrapper's layout."""
+    require(max_porder == R.max_porder_for(x.shape[-1]),
+            f"max_porder {max_porder} for n = {x.shape[-1]}")
+    return R._rice_search_plain(x)
+
+
 # The batched encode's kernels (the byte-exact fit's quantizer,
 # "quantize_layer", is the last of AS.KERNELS), the wrapper the encode
 # calls for each, and each wrapper's plain version.
 MAIN_SCANS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
-              "unit_residual_select", "lpc_autocorr")
+              "unit_residual_select", "lpc_autocorr", "rice_search")
 _SCAN_WRAPPER = {"levinson_durbin": "levinson_durbin",
                  "quantize_coefficients": "quantize_layers",
                  "predict_dense": "predict_dense",
                  "unit_residual_select": "unit_residual_select",
                  "lpc_autocorr": "lpc_autocorr",
+                 "rice_search": "rice_search",
                  "quantize_layer": "quantize_layers_exact"}
 _SCAN_PLAIN = {"levinson_durbin": A._levinson_durbin_plain,
                "quantize_coefficients": A._quantize_layers_plain,
                "predict_dense": I._predict_dense_plain,
                "unit_residual_select": unit_residual_plain,
                "lpc_autocorr": lpc_autocorr_plain,
+               "rice_search": rice_search_plain,
                "quantize_layer": ED._quantize_layers_plain}
 # Where each kernel's loop stands in the JAX package: an XLA scan inside a
 # jitted stage (the byte-exact quantizer: an unrolled loop of the jitted
-# fit; the residual pass: fit_layer's loop over the unit counts), not a
-# Pallas kernel.
+# fit; the residual pass: fit_layer's loop over the unit counts; the Rice
+# search: XLA ops over the residual plane), not a Pallas kernel.
 _SCAN_REPLACES = {"levinson_durbin": "linne_tpu/ops/analysis.py:141",
                   "quantize_coefficients": "linne_tpu/ops/analysis.py:426",
                   "predict_dense": "linne_tpu/ops/intops.py:87",
                   "unit_residual_select": "linne_tpu/ops/analysis.py:348",
                   "lpc_autocorr": "linne_tpu/ops/analysis.py:196",
+                  "rice_search": "linne_tpu/ops/rice_search.py:58",
                   "quantize_layer": "linne_tpu/ops/exact_device.py:429"}
 # The residual pass's loss against its plain version's: the same terms
 # summed in another order
@@ -1149,6 +1167,17 @@ def scan_bound(name, args, clock_hz, dadd_cycles, ddiv_cycles=0.0):
                                    for l2, lags, _ in splits))
         chain = n * dadd_cycles / 32  # a stretch of t, then its butterfly
         t_ops = ops / (FP64_OPS_PER_CLK * clock_hz)
+    elif name == "rice_search":
+        # a shift, a max and an add a sample and order, and the code and
+        # the finest sum a sample, at the IMAD rate (the parameter fits
+        # left out); the plane read once, the orders and parameters
+        # written once
+        x, max_porder = args
+        rows, n = x.shape
+        ops = rows * n * (3 * (max_porder + 1) + 3)
+        nbytes = 4 * rows * n + 4 * rows * (1 + (1 << max_porder))
+        chain = 0
+        t_ops = ops / IMAD_PER_S
     else:
         x, coefs, log2u = args[0], args[1], args[2]
         rows, n = x.shape
@@ -1334,6 +1363,53 @@ def lpc_autocorr_phase(tracks, clock_hz, dadd_cycles) -> None:
           f"({100 * total['bound_ms'] / total['ms']:.1f} % of it reached)")
 
 
+def rice_search_phase(tracks, clock_hz, dadd_cycles) -> None:
+    """The Rice parameter search in one 128-block batch of the corpus (the
+    benchmark's batch): its launches a batch at presets 7 and 0 (one
+    each), then each preset's call checked against its plain version and
+    timed beside it (the torch ops the kernel replaced) and its bound."""
+    blocks = batch_blocks(tracks, 128)
+    real = AS.rice_search
+    for preset in (7, 0):
+        calls = []
+
+        def rec(*args):
+            calls.append(clone_args(args))
+            return real(*args)
+
+        enc = TorchEncoder(batch_blocks=128, device="cuda")
+        enc.set_encode_parameter(param(preset))
+        analyze = enc._analyze_fn(SPB)[0]
+        analyze(blocks)  # warm
+        torch.cuda.synchronize()
+        before = AS.KERNEL_LAUNCHES["rice_search"]
+        AS.rice_search = rec
+        try:
+            analyze(blocks)
+        finally:
+            AS.rice_search = real
+        torch.cuda.synchronize()
+        launches = AS.KERNEL_LAUNCHES["rice_search"] - before
+        require(launches == 1 and len(calls) == 1,
+                f"preset {preset}: {launches} rice_search launches in a "
+                f"batch, not one")
+        args = calls[0]
+        check_exact("rice_search", real(*args), rice_search_plain(*args),
+                    f"preset {preset}")
+        ms = min(kernel_ms(lambda: real(*args), reps=20) for _ in range(3))
+        plain_ms = min(cuda_ms(lambda: rice_search_plain(*args), reps=5)
+                       for _ in range(3))
+        b_ms, b_by, _ = scan_bound("rice_search", args, clock_hz,
+                                   dadd_cycles)
+        orders = torch.bincount(real(*args)[0].flatten(), minlength=11)
+        print(f"rice_search preset {preset}, {tuple(args[0].shape)} "
+              f"(one launch a 128-block batch): kernel {ms:.4f} ms, plain "
+              f"torch (the ops it replaced) {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / ms:.1f} % of it "
+              f"reached); orders and parameters bit-equal; rows a best "
+              f"order 0..10 {orders.tolist()}")
+
+
 def clone_args(args):
     """A call's arguments with every tensor (also in a list) cloned."""
     def one(a):
@@ -1425,7 +1501,8 @@ class PlainScans:
     def __init__(self, on: bool = True):
         self.on = on
         self._real = (A.levinson_durbin, A.quantize_layers, I._predict_dense,
-                      A.unit_residual_select, A.unit_autocorrelations)
+                      A.unit_residual_select, A.unit_autocorrelations,
+                      R.rice_search)
 
     def __enter__(self):
         if self.on:
@@ -1434,11 +1511,13 @@ class PlainScans:
             I._predict_dense = I._predict_dense_plain
             A.unit_residual_select = A._unit_residual_select_plain
             A.unit_autocorrelations = A._unit_autocorrelations_plain
+            R.rice_search = R._rice_search_plain
         return self
 
     def __exit__(self, *exc):
         (A.levinson_durbin, A.quantize_layers, I._predict_dense,
-         A.unit_residual_select, A.unit_autocorrelations) = self._real
+         A.unit_residual_select, A.unit_autocorrelations,
+         R.rice_search) = self._real
 
 
 def stage_ops(blocks) -> dict:
@@ -3492,6 +3571,7 @@ def main() -> int:
     scans = scan_calls_phase(tracks, clock_hz, dadd, ddiv)
     unit_residual_phase(tracks, clock_hz, dadd)
     lpc_autocorr_phase(tracks, clock_hz, dadd)
+    rice_search_phase(tracks, clock_hz, dadd)
     scan_pairs_phase(tracks)
     group_err = decode_groups_phase(datas)
     decode_profile_phase(datas)

@@ -1,6 +1,6 @@
 // The serial recursions of the batched encoder's analysis and finish
-// stages, its layer fits' autocorrelation and residual pass, and the
-// byte-exact fit's quantizer.
+// stages, its layer fits' autocorrelation and residual pass, its finish
+// stage's Rice parameter search, and the byte-exact fit's quantizer.
 //
 // These kernels replace no Pallas kernel: the JAX package left these loops
 // to XLA as `lax.scan` loops (or, on the byte-exact fit, unrolled Python
@@ -31,6 +31,13 @@
 //                       fit_unit_lpc, autocorrelation): every candidate
 //                       split's windowing and lags, one launch a layer and
 //                       one for the block-type estimate (below).
+//   rice_search_kernel<S> replaces the finish stage's partitioned-Rice
+//                       parameter search (linne_tpu/ops/rice_search.py
+//                       rice_search, XLA ops: a dozen passes over the
+//                       residual plane an order): every order's partition
+//                       sums, parameters and code lengths and the
+//                       first-minimum pick, one launch a batch; S: the
+//                       row staged in shared memory (below).
 //
 // Exactness. The quantizer and the predict cascade are bit-equal to their
 // plain torch versions (linne_tpu_torch/ops/analysis.py
@@ -48,7 +55,9 @@
 // sum: deterministic, the same for a row wherever it sits in the batch (no
 // atomics, nothing across rows), and within rounding of the plain version,
 // not bit-equal to it. tests/torch_levinson_model.py models it step for
-// step, and the card tests hold the kernel to that model bit for bit.
+// step, and the card tests hold the kernel to that model bit for bit. The
+// Rice search's orders and parameters are its plain version's
+// (ops/rice_search.py _rice_search_plain) on a CUDA tensor, bit for bit.
 //
 // Bound. The recursion's longest chain a row is, at every step, the divide
 // and ek's update (multiply, subtract, multiply) that the next divide
@@ -1539,6 +1548,252 @@ __global__ void __launch_bounds__(kLaThreads, 2)
   SPLIT_END();
 }
 
+// -- the partitioned-Rice parameter search ------------------------------------
+//
+// One CTA a row (a block's channel) of n int32 residuals, cut into P = 2^mp
+// finest partitions of L = n >> mp samples (mp: ops/rice_search.py
+// max_porder_for(n)); order p has 2^p partitions of n >> p samples, p =
+// mp..0. (1) The row's zigzag codes are staged once in shared memory, with
+// 16-byte loads where the row is aligned; a row longer than the CTA's
+// shared memory holds is read from global memory in each of the two passes
+// instead. (2) Each finest partition's sum in uint64, then each coarser
+// order's from pairs of the finer: a tree of 2P - 1 nodes, partition j of
+// order p at node 2^p - 1 + j. Every sum is an integer below 2^53 (n <=
+// 2^21), so these are the plain version's float64 sums bit for bit in any
+// order. (3) Every node's parameter by rs_fit, the plain version's own
+// sequence of IEEE operations and libdevice calls. (4) One read of each sample gives its code
+// length at every order, max((u >> k) - 2, 0) summed in uint32 (the plain
+// version's int64 sum & 0xFFFFFFFF, since addition mod 2^32 does not
+// depend on the order); the items are (finest partition, chunk of
+// `chunk` samples), and the item that starts a partition of order p adds
+// that partition's nsmpl (k + 2) and the gamma code of its parameter's
+// difference from the partition before it (rs_gamma). (5) The sums over the warps,
+// plus the 5 bits of the first parameter, and the first minimum over the
+// orders in ascending order (the plain version's argmin over the totals
+// from order 0 up); the row's best order and its parameters, zeros past
+// 2^best.
+//
+// Bound. Integer operations: a shift, a max and an add a sample and order,
+// 3 (mp + 1) + 3 a sample with the code and the finest sum, 86.5 M for a
+// 128-block batch at n 10240 (5.2 us at 64 a clock an SM); the bytes are
+// one read of the plane, 10.5 MB (3.1 us). The 2P - 1 parameter fits (a
+// log, a log2 and two divides in float64 each) come to ~3 us of the FP64
+// rate over such a batch. The design reads each sample once from device
+// memory and once from shared memory a pass, keeps the 11 orders' sums in
+// registers, and has a CTA's few hundred threads on every row at once: a
+// 128-block batch's 256 rows are one wave at two CTAs an SM.
+// Measured (chip_smoke.py phase 4d; NVIDIA H100 80GB HBM3 at 700 W): a
+// 128-block batch's launch 0.0257 ms (22 % of its 5.6 us bound), against
+// ~10 ms of eager torch ops for the plain version.
+
+constexpr int kRsThreads = 512;      // the most threads a CTA
+constexpr int kRsMaxPorder = 10;     // LOG2_MAX_NUM_PARTITIONS
+constexpr int kRsOrders = kRsMaxPorder + 1;
+constexpr uint32_t kRsParameterBits = 5;  // RICE_PARAMETER_BITS
+constexpr int kRsMaxN = 1 << 21;     // n 2^32 stays below 2^53
+constexpr int kRsSmemBudget = 110 * 1024;  // bytes a CTA: two an SM
+// math.log(_OPTX), ops/rice_search.py's _LOG_OPTX, bit for bit
+constexpr double kRsLogOptx = -0x1.55fc71c9a812fp-1;
+
+using u64 = unsigned long long;
+
+struct RsPlan {
+  int n;
+  int mp;     // the finest partition order
+  int lcpp;   // log2 of the chunks a finest partition is cut into
+  int chunk;  // samples a chunk
+};
+
+__device__ __forceinline__ uint32_t rs_zigzag(int32_t x) {
+  return (static_cast<uint32_t>(x) << 1) ^ static_cast<uint32_t>(x >> 31);
+}
+
+// Bits of the gamma code of zigzag(d): ops/rice_search.py _gamma_bits,
+// with its _clz32 of z + 1 as 31 - floor(log2(z + 1)) in float64.
+// libdevice's log2, which torch's kernel calls, puts log2(8) just below
+// 3, so on a CUDA tensor the plain version costs a step of -4 (z = 7) 5
+// bits, where the CPU and an exact count of leading zeros cost it 7; the
+// kernel keeps the card's count.
+__device__ __forceinline__ uint32_t rs_gamma(int32_t d) {
+  const uint32_t z = rs_zigzag(d);
+  if (z == 0) return 1u;
+  const double lg = floor(log2(static_cast<double>(z + 1u)));
+  return 2u * static_cast<uint32_t>(1 + static_cast<int>(lg)) - 1u;
+}
+
+// ops/rice_search.py _optimal_k2 of mean = sum / nsmpl, operation for
+// operation as torch runs it on a CUDA tensor: `sums / nsmpl` is a product
+// by the reciprocal (a CPU scalar divisor), `1.0 / t` and `c / t` are
+// t.reciprocal() * c, log and log2 are libdevice's, as torch's kernels call
+// them. The intrinsics keep nvcc from contracting a product into an FMA.
+__device__ __forceinline__ uint8_t rs_fit(u64 sum, double inv_nsmpl) {
+  const double mean = __dmul_rn(__ull2double_rn(sum), inv_nsmpl);
+  if (!(mean > 0.0)) return 0;
+  const double rho = __ddiv_rn(1.0, __dadd_rn(1.0, mean));
+  const double log1m = log(fmax(__dsub_rn(1.0, rho), 1e-300));
+  const double ratio = __dmul_rn(__ddiv_rn(1.0, log1m), kRsLogOptx);
+  const double k2 = floor(log2(fmax(ratio, 1e-300)));
+  return static_cast<uint8_t>(fmin(fmax(k2, 0.0), 31.0));
+}
+
+template <bool kStaged>
+__device__ __forceinline__ uint32_t rs_code(const uint32_t* u,
+                                            const int32_t* xr, int i) {
+  if constexpr (kStaged) {
+    return u[i];
+  } else {
+    return rs_zigzag(__ldg(xr + i));
+  }
+}
+
+// Row `row` of x at x + row * n; best [rows], k2 [rows, 2^mp]. Shared
+// memory: the tree [2P] uint64, the reciprocals of each order's nsmpl
+// [kRsOrders + 1] float64, the staged codes [n] uint32 (kStaged), each
+// warp's sums [warps][kRsOrders] and the totals [kRsOrders] uint32, the
+// parameters [2P] uint8.
+template <bool kStaged>
+__global__ void __launch_bounds__(kRsThreads, 2)
+    rice_search_kernel(const int32_t* __restrict__ x, const RsPlan plan,
+                       int32_t* __restrict__ best_out,
+                       int32_t* __restrict__ k2_out) {
+  extern __shared__ u64 rs_sm[];
+  const int n = plan.n, mp = plan.mp, P = 1 << mp, L = n >> mp;
+  const int lcpp = plan.lcpp, cpp = 1 << lcpp, chunk = plan.chunk;
+  const int items = P << lcpp;
+  const int tid = threadIdx.x, threads = blockDim.x, lane = tid & 31;
+  const int warps = threads >> 5;
+  u64* const tree = rs_sm;
+  double* const inv = reinterpret_cast<double*>(tree + 2 * P);
+  uint32_t* const u = reinterpret_cast<uint32_t*>(inv + kRsOrders + 1);
+  uint32_t* const part = u + (kStaged ? n : 0);
+  uint32_t* const totals = part + warps * kRsOrders;
+  uint8_t* const k2s = reinterpret_cast<uint8_t*>(totals + kRsOrders);
+  const int64_t row = blockIdx.x;
+  const int32_t* const xr = x + row * n;
+  SPLIT_START(blockIdx.x == 0 && tid == 0);
+
+  // (1) the codes, and what the passes below read before a barrier
+  if (kStaged) {
+    int v0 = 0;
+    if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+      const int4* const x4 = reinterpret_cast<const int4*>(xr);
+      uint4* const u4 = reinterpret_cast<uint4*>(u);
+      for (int i = tid; i < n >> 2; i += threads) {
+        const int4 v = __ldg(x4 + i);
+        u4[i] = make_uint4(rs_zigzag(v.x), rs_zigzag(v.y), rs_zigzag(v.z),
+                           rs_zigzag(v.w));
+      }
+      v0 = n & ~3;
+    }
+    for (int i = v0 + tid; i < n; i += threads) u[i] = rs_zigzag(__ldg(xr + i));
+  }
+  if (tid <= mp) inv[tid] = __ddiv_rn(1.0, static_cast<double>(n >> tid));
+  u64* const finest = tree + (P - 1);
+  if (cpp > 32) {
+    for (int f = tid; f < P; f += threads) finest[f] = 0;
+  }
+  __syncthreads();
+  SPLIT_MARK(0, inv[0]);
+
+  // (2) the finest sums: an item's samples, then the chunks of a partition
+  // (consecutive lanes) added in a butterfly over min(cpp, 32) lanes, and
+  // past a warp with shared-memory atomics
+  const int w = min(cpp, 32);
+  for (int ib = tid - lane; ib < items; ib += threads) {
+    const int item = ib + lane;
+    u64 s = 0;
+    if (item < items) {
+      const int f = item >> lcpp, c = item & (cpp - 1);
+      const int i0 = f * L + c * chunk, i1 = min(i0 + chunk, (f + 1) * L);
+      for (int i = i0; i < i1; ++i) s += rs_code<kStaged>(u, xr, i);
+    }
+    for (int off = w >> 1; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(kFullMask, s, off);
+    }
+    if (item < items && (lane & (w - 1)) == 0) {
+      if (cpp <= 32) {
+        finest[item >> lcpp] = s;
+      } else {
+        atomicAdd(finest + (item >> lcpp), s);
+      }
+    }
+  }
+  __syncthreads();
+  for (int p = mp - 1; p >= 0; --p) {
+    u64* const lv = tree + ((1 << p) - 1);
+    const u64* const up = tree + ((2 << p) - 1);
+    for (int j = tid; j < 1 << p; j += threads) lv[j] = up[2 * j] + up[2 * j + 1];
+    __syncthreads();
+  }
+  SPLIT_MARK(1, static_cast<uint32_t>(tree[0]));
+
+  // (3) every node's parameter
+  for (int t = tid; t < 2 * P - 1; t += threads) {
+    k2s[t] = rs_fit(tree[t], inv[31 - __clz(t + 1)]);
+  }
+  __syncthreads();
+  SPLIT_MARK(2, static_cast<int>(k2s[0]));
+
+  // (4) the code lengths at every order from one read of each sample
+  uint32_t acc[kRsOrders];
+#pragma unroll
+  for (int p = 0; p < kRsOrders; ++p) acc[p] = 0;
+  for (int item = tid; item < items; item += threads) {
+    const int f = item >> lcpp, c = item & (cpp - 1);
+    const int i0 = f * L + c * chunk, i1 = min(i0 + chunk, (f + 1) * L);
+    uint32_t kk[kRsOrders];
+#pragma unroll
+    for (int p = 0; p < kRsOrders; ++p) {
+      kk[p] = 0;
+      if (p > mp) continue;
+      const int sh = mp - p, j = f >> sh, node = (1 << p) - 1 + j;
+      const uint32_t k = k2s[node];
+      kk[p] = k;
+      if (c == 0 && (f & ((1 << sh) - 1)) == 0) {
+        acc[p] += static_cast<uint32_t>(n >> p) * (k + 2u);
+        if (j > 0) {
+          acc[p] += rs_gamma(static_cast<int32_t>(k) -
+                             static_cast<int32_t>(k2s[node - 1]));
+        }
+      }
+    }
+    for (int i = i0; i < i1; ++i) {
+      const uint32_t v = rs_code<kStaged>(u, xr, i);
+#pragma unroll
+      for (int p = 0; p < kRsOrders; ++p) acc[p] += max(v >> kk[p], 2u) - 2u;
+    }
+  }
+  SPLIT_MARK(3, acc[0]);
+
+  // (5) the totals, the pick and the row's outputs
+#pragma unroll
+  for (int p = 0; p < kRsOrders; ++p) {
+    uint32_t v = acc[p];
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(kFullMask, v, off);
+    }
+    if (lane == 0) part[(tid >> 5) * kRsOrders + p] = v;
+  }
+  __syncthreads();
+  if (tid <= mp) {
+    uint32_t t = kRsParameterBits;
+    for (int wi = 0; wi < warps; ++wi) t += part[wi * kRsOrders + tid];
+    totals[tid] = t;
+  }
+  __syncthreads();
+  int best = 0;
+  for (int p = 1; p <= mp; ++p) {
+    if (totals[p] < totals[best]) best = p;
+  }
+  if (tid == 0) best_out[row] = best;
+  int32_t* const krow = k2_out + row * P;
+  for (int j = tid; j < P; j += threads) {
+    krow[j] = j < (1 << best) ? k2s[(1 << best) - 1 + j] : 0;
+  }
+  SPLIT_MARK(4, best);
+  SPLIT_END();
+}
+
 // A dependent chain of n __ddiv_rn in one warp (a <- x / a stays near
 // sqrt(x)), timed with clock64: the card's divide latency is
 // (cycles(n2) - cycles(n1)) / (n2 - n1). The recursion's chain bound
@@ -1836,5 +2091,53 @@ extern "C" int linne_lpc_autocorr(const double* x, int64_t row_stride,
   lpc_autocorr_kernel<<<static_cast<unsigned>(rows), threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       x, row_stride, n, cands, plan, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: rows rows of n int32 residuals, row r at x + r * n (1 <= n <= 2^21);
+// max_porder (0..10) with 2^max_porder dividing n -> best [rows] int32 and
+// k2 [rows, 2^max_porder] int32 (zeros past 2^best).
+extern "C" int linne_rice_search(const int32_t* x, int64_t rows, int n,
+                                 int max_porder, int32_t* best, int32_t* k2,
+                                 void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || n < 1 || n > kRsMaxN ||
+      max_porder < 0 || max_porder > kRsMaxPorder ||
+      (n >> max_porder) << max_porder != n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the plan: a thread for every ~16 samples up to kRsThreads; each finest
+  // partition cut into the fewest chunks (a power of two, none empty) that
+  // give every thread an item
+  RsPlan plan{};
+  plan.n = n;
+  plan.mp = max_porder;
+  const int P = 1 << max_porder, L = n >> max_porder;
+  const int threads = min(kRsThreads, max(32, (n / 16 + 31) / 32 * 32));
+  while ((P << plan.lcpp) < threads && (2 << plan.lcpp) <= L) ++plan.lcpp;
+  plan.chunk = (L + (1 << plan.lcpp) - 1) >> plan.lcpp;
+  const size_t fixed = 16 * static_cast<size_t>(P) + 8 * (kRsOrders + 1) +
+                       4 * static_cast<size_t>(threads / 32 + 1) * kRsOrders +
+                       2 * static_cast<size_t>(P);
+  const size_t staged = fixed + 4 * static_cast<size_t>(n);
+  const auto grid = static_cast<unsigned>(rows);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (staged > static_cast<size_t>(kRsSmemBudget)) {
+    rice_search_kernel<false><<<grid, threads, fixed, st>>>(x, plan, best, k2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // above 48 KB only once the kernel allows it, on each device
+  static bool allowed[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    err = cudaFuncSetAttribute(rice_search_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kRsSmemBudget);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = true;
+  }
+  rice_search_kernel<true><<<grid, threads, staged, st>>>(x, plan, best, k2);
   return static_cast<int>(cudaGetLastError());
 }

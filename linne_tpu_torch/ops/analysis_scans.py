@@ -1,6 +1,6 @@
 """The serial loops of the batched encode, its layer fits' windowed
-autocorrelation and residual pass, and the byte-exact fit's quantizer, as
-CUDA kernels.
+autocorrelation and residual pass, its finish stage's Rice parameter
+search, and the byte-exact fit's quantizer, as CUDA kernels.
 
 The JAX package runs three recursions of its default encode as
 `lax.scan` loops inside jitted stages (linne_tpu/ops/analysis.py
@@ -9,14 +9,18 @@ The JAX package runs three recursions of its default encode as
 residual pass of its unit-count sweep as XLA ops (linne_tpu/ops/analysis.py
 `fit_unit_lpc` and `autocorrelation`: every candidate split's windowing
 and lags; `fit_layer`: every candidate split's residual, its loss and the
-first-minimum pick), and the byte-exact fit's quantizer as a loop over the
-taps (linne_tpu/ops/exact_device.py `_quantize_layer`). Eager torch would
+first-minimum pick), the finish stage's partitioned-Rice parameter
+search as XLA ops (linne_tpu/ops/rice_search.py `rice_search`: a dozen
+passes over the residual plane a partition order), and the byte-exact
+fit's quantizer as a loop over the taps (linne_tpu/ops/exact_device.py
+`_quantize_layer`). Eager torch would
 dispatch a dozen ops for every step of each; here each is one launch of a
 hand-written kernel (csrc/analysis_scans.cu). The plain torch versions
 stay in ops/analysis.py (`_levinson_durbin_plain`,
 `_quantize_coefficients_plain`, `_quantize_layers_plain`,
 `_unit_autocorrelations_plain`, `_unit_residual_select_plain`), ops/intops.py
-(`_predict_dense_plain`) and ops/exact_device.py (`_quantize_layer_plain`,
+(`_predict_dense_plain`), ops/rice_search.py (`_rice_search_plain`) and
+ops/exact_device.py (`_quantize_layer_plain`,
 `_quantize_layers_plain`), whose public functions send a CPU tensor to the
 plain version and a CUDA tensor here. There is no fallback from one to the
 other.
@@ -35,7 +39,9 @@ The quantizer and the predict cascade are bit-equal to their plain
 versions, and so are the residual pass's residuals to the loop route's
 (ops/analysis.py `_unit_forward_loop`); its loss sums the same terms in
 another order. The autocorrelation's windowed samples are the plain
-version's bits and its lags sum them in another order. The recursion takes each step's numerator in Schur form (the
+version's bits and its lags sum them in another order. The Rice search's
+orders and parameters are its plain version's on a CUDA tensor, bit for
+bit. The recursion takes each step's numerator in Schur form (the
 forward and backward correlations updated elementwise, no sum), so it
 agrees with its plain version to rounding, deterministically and wherever
 a row sits in the batch.
@@ -47,11 +53,13 @@ import ctypes
 
 import torch
 
+from ..constants import LOG2_MAX_NUM_PARTITIONS
 from . import _kernels
 
 # the batched encoder's kernels, then the byte-exact fit's quantizer
 KERNELS = ("levinson_durbin", "quantize_coefficients", "predict_dense",
-           "unit_residual_select", "lpc_autocorr", "quantize_layer")
+           "unit_residual_select", "lpc_autocorr", "rice_search",
+           "quantize_layer")
 
 # Launches of each kernel since import (or since a caller reset them);
 # incremented only where the kernel is launched.
@@ -71,6 +79,11 @@ UNIT_MAX_CANDIDATES = 8
 # The lags one autocorrelation launch forms a unit: lags 0..128.
 AUTOCORR_MAX_LAGS = KERNEL_MAX_ORDER + 1
 
+# The longest row a Rice search launch takes: up to n 2^32 < 2^53 a
+# partition's float64 sum in the plain version is exact, as the kernel's
+# integer sums are.
+RICE_MAX_N = 1 << 21
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
@@ -82,6 +95,7 @@ _SIGNATURES = {
     "unit_residual_select": [_P, _L, _L, _P, _P, _I, _I, _I, _L, _P, _P, _P,
                              _P, _P],
     "lpc_autocorr": [_P, _L, _L, _I, _P, _P, _P, _I, _P, _P],
+    "rice_search": [_P, _L, _I, _I, _P, _P, _P],
     "ddiv_probe": [ctypes.c_double, _I, _P, _P, _P],
 }
 _fns: dict = {}
@@ -444,6 +458,35 @@ def lpc_autocorr(x: torch.Tensor, splits):
         views.append(out[:, col:col + width].unflatten(1, (1 << l2, lags)))
         col += width
     return views
+
+
+def rice_search(x: torch.Tensor, max_porder: int):
+    """x [rows, n] int32 residuals (contiguous; 1 <= n <= RICE_MAX_N) and
+    the finest partition order max_porder (0..10, 2^max_porder dividing n)
+    -> (best_porder [rows] int32, k2 [rows, 2^max_porder] int32, zeros past
+    2^best_porder): every order's partition sums, parameters and code
+    lengths and the first-minimum pick of
+    ops/rice_search.py:_rice_search_plain at float64, in one launch, bit
+    for bit."""
+    _check(torch.int32, x=x)
+    if x.dim() != 2:
+        raise ValueError(f"x must be [rows, n], got {tuple(x.shape)}")
+    rows, n = x.shape
+    if not 1 <= n <= RICE_MAX_N:
+        raise ValueError(f"n = {n} outside 1..{RICE_MAX_N}")
+    if not 0 <= max_porder <= LOG2_MAX_NUM_PARTITIONS \
+            or n % (1 << max_porder):
+        raise ValueError(f"max_porder {max_porder}: 2^max_porder "
+                         f"partitions (max_porder 0.."
+                         f"{LOG2_MAX_NUM_PARTITIONS}) must divide n = {n}")
+    _check_device(x.device)
+    best = torch.empty(rows, dtype=torch.int32, device=x.device)
+    k2 = torch.empty((rows, 1 << max_porder), dtype=torch.int32,
+                     device=x.device)
+    if rows:
+        _launch("rice_search", x.device, x.data_ptr(), rows, n, max_porder,
+                best.data_ptr(), k2.data_ptr())
+    return best, k2
 
 
 def levinson_lanes(order: int) -> int:

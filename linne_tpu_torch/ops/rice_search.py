@@ -7,6 +7,12 @@ wrap of the reference's uint32 accumulator
 (reference: libs/linne_coder/src/linne_coder.c:217-279). torch's uint32
 lacks shifts on the CPU, so every uint32 quantity here is held in int64 and
 reduced modulo 2^32 (`& 0xFFFFFFFF`) where the reference wraps.
+
+`rice_search` sends a CPU tensor to `_rice_search_plain`, these torch ops,
+and a CUDA tensor to one launch of the hand-written kernel
+(ops/analysis_scans.py:rice_search, csrc/analysis_scans.cu
+rice_search_kernel), whose orders and parameters are the plain version's
+on the same CUDA tensor, bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import LOG2_MAX_NUM_PARTITIONS, RICE_PARAMETER_BITS
+from . import analysis_scans
 
 _OPTX = 0.5127629514437670454896078808815218508243560791015625
 _LOG_OPTX = math.log(_OPTX)
@@ -67,7 +74,28 @@ def rice_search(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """data: [..., n] int32 residual planes.
     Returns (best_porder[...] int32, k2[..., 2^max_porder] int32 where the
-    first 2^best_porder entries are the per-partition parameters)."""
+    first 2^best_porder entries are the per-partition parameters and the
+    rest are 0). A CPU tensor takes `_rice_search_plain`; any other launches
+    the kernel, whose partition means are float64 (the only compute_dtype
+    it takes), or raises."""
+    if data.device.type == "cpu":
+        return _rice_search_plain(data, compute_dtype)
+    if compute_dtype != torch.float64:
+        raise ValueError(f"compute_dtype {compute_dtype}: the kernel "
+                         "computes in torch.float64 only")
+    n = data.shape[-1]
+    max_porder = max_porder_for(n)
+    best, k2 = analysis_scans.rice_search(
+        data.reshape(-1, n).contiguous(), max_porder)
+    lead = tuple(data.shape[:-1])
+    return best.reshape(lead), k2.reshape(lead + (1 << max_porder,))
+
+
+def _rice_search_plain(
+    data: torch.Tensor, compute_dtype=torch.float64
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """rice_search as torch ops, a Python loop over the partition orders:
+    the kernel's plain version."""
     n = data.shape[-1]
     lead = tuple(data.shape[:-1])
     max_porder = max_porder_for(n)

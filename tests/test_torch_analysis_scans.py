@@ -32,6 +32,7 @@ from linne_tpu.ops import intops as JI
 from linne_tpu_torch.ops import analysis as A
 from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import intops as I
+from linne_tpu_torch.ops import rice_search as R
 from linne_tpu_torch.ops.windows import (WINDOW_RECTANGULAR, WINDOW_SIN,
                                          WINDOW_WELCH, window_weights)
 from linne_tpu_torch.presets import PRESETS
@@ -765,6 +766,16 @@ _ARG_CASES = {  # case: the check's words in its message
     "autocorr window taps": "window 0 must be .32. contiguous",
     "autocorr device": "unsupported device cpu",
     "autocorr public meta": "unsupported device meta",
+    "rice dtype": "must be torch.int32",
+    "rice shape": "x must be .rows, n.",
+    "rice rows": "must be contiguous",
+    "rice n 0": "n = 0 outside 1..2097152",
+    "rice n long": "n = 2097153 outside 1..2097152",
+    "rice porder 11": "max_porder 11",
+    "rice porder divides": "max_porder 3: 2.max_porder partitions",
+    "rice device": "unsupported device cpu",
+    "rice public dtype": "compute_dtype torch.float32",
+    "rice public meta": "unsupported device meta",
 }
 
 
@@ -892,6 +903,20 @@ def test_wrapper_argument_checks(case):
             [(1, 5, torch.ones(32, dtype=f64))]),
         "autocorr public meta": lambda: A.unit_autocorrelations(
             _meta((2, 3, 64), f64), [(2, 5)], WINDOW_WELCH),
+        "rice dtype": lambda: AS.rice_search(_meta((4, 64), torch.int64), 6),
+        "rice shape": lambda: AS.rice_search(_meta((2, 4, 64), i32), 6),
+        "rice rows": lambda: AS.rice_search(_meta((64, 4), i32).t(), 2),
+        "rice n 0": lambda: AS.rice_search(_meta((4, 0), i32), 0),
+        "rice n long": lambda: AS.rice_search(
+            _meta((1, (1 << 21) + 1), i32), 0),
+        "rice porder 11": lambda: AS.rice_search(_meta((4, 4096), i32), 11),
+        "rice porder divides": lambda: AS.rice_search(
+            _meta((4, 100), i32), 3),
+        "rice device": lambda: AS.rice_search(
+            torch.zeros(4, 64, dtype=i32), 6),
+        "rice public dtype": lambda: R.rice_search(
+            _meta((2, 3, 64), i32), torch.float32),
+        "rice public meta": lambda: R.rice_search(_meta((2, 3, 64), i32)),
     }
     before = dict(AS.KERNEL_LAUNCHES)
     with pytest.raises(ValueError, match=_ARG_CASES[case]):
@@ -917,7 +942,8 @@ def test_importing_the_scans_builds_nothing():
     code = (
         "import sys; "
         f"sys.path.insert(0, {str(REPO_ROOT)!r}); "
-        "from linne_tpu_torch.ops import analysis_scans, analysis, intops; "
+        "from linne_tpu_torch.ops import analysis_scans, analysis, intops, "
+        "rice_search; "
         "from linne_tpu_torch.ops import _kernels; "
         "assert not _kernels._libs and not analysis_scans._fns; "
         "print('ok')")

@@ -30,10 +30,12 @@ from linne_tpu_torch.ops import analysis as A
 from linne_tpu_torch.ops import analysis_scans as AS
 from linne_tpu_torch.ops import exact_serial as ES
 from linne_tpu_torch.ops import intops as I
+from linne_tpu_torch.ops import rice_search as R
 from linne_tpu_torch.ops import synthesis as S
 from linne_tpu_torch.parallel.mesh import shards
 from linne_tpu_torch.presets import PRESETS
 from torch_levinson_model import lanes_for, levinson_schur
+from torch_rice_model import edge_plane, tie_plane
 
 pytestmark = pytest.mark.cuda
 
@@ -1491,3 +1493,129 @@ def test_scans_lpc_autocorr_fit_layer_matches_cpu(preset):
             assert torch.equal(got.cpu(), want)
         x = cpu[2]
         x_card = x.cuda()
+
+
+# -- the finish stage's Rice parameter search (rice_search) -------------------
+
+
+def _rice_plane(lead, n, seed):
+    """Seeded residual rows on the card: Laplacian noise at a scale drawn
+    log-uniformly from 1 to 10^5 a row, a quiet first half on every third
+    row, sparse spikes on every fifth."""
+    rng = np.random.default_rng(seed)
+    rows = int(np.prod(lead))
+    scale = np.exp(rng.uniform(0.0, np.log(1e5), (rows, 1)))
+    x = np.round(rng.laplace(0.0, 1.0, (rows, n)) * scale)
+    x[::3, : n // 2] //= 50
+    x[::5] *= (np.arange(n) % 97 == 0) * 30 + 1
+    return torch.from_numpy(np.clip(x, -2**31, 2**31 - 1).astype(
+        np.int32).reshape(tuple(lead) + (n,))).cuda()
+
+
+def _rice_check(x):
+    """rice_search on the card: one launch, and the plain version's orders
+    and every k2 entry (the zeros past 2^best included) bit for bit on the
+    same CUDA tensor. Returns the orders."""
+    before = AS.KERNEL_LAUNCHES["rice_search"]
+    best, k2 = R.rice_search(x)
+    torch.cuda.synchronize()
+    assert AS.KERNEL_LAUNCHES["rice_search"] == before + 1
+    want_best, want_k2 = R._rice_search_plain(x)
+    assert best.dtype == k2.dtype == torch.int32
+    assert best.shape == want_best.shape and k2.shape == want_k2.shape
+    assert torch.equal(best, want_best)
+    assert torch.equal(k2, want_k2)
+    return best
+
+
+@pytest.mark.parametrize("blocks", [128, 64])
+def test_scans_rice_search_matches_plain_version(blocks):
+    """The main path's batches: (128, 2, 10240) and (64, 2, 10240)."""
+    _require_card()
+    x = _rice_plane((blocks, 2), 10240, blocks)
+    best = _rice_check(x)
+    assert len(set(best.flatten().tolist())) > 3
+    if blocks == 128:
+        # a parameter step of -4 decides a row's order here: the card's
+        # plain version costs it 5 bits, the CPU's 7 (rs_gamma)
+        assert not torch.equal(best.cpu(), R._rice_search_plain(x.cpu())[0])
+
+
+@pytest.mark.parametrize("n", [1, 3, 4410, 8192, 10239])
+def test_scans_rice_search_tails(n):
+    """Device tails: every finest partition order 0..10, chunked
+    partitions, rows off a 16-byte boundary."""
+    _require_card()
+    _rice_check(_rice_plane((5, 2), n, n))
+
+
+@pytest.mark.parametrize("n", [30001, 65536, 1 << 21])
+def test_scans_rice_search_rows_past_shared_memory(n):
+    """Rows longer than a CTA's shared memory holds, read from device
+    memory in each pass, up to the longest row the kernel takes."""
+    _require_card()
+    _rice_check(_rice_plane((2, 1), n, n))
+
+
+def _rice_extreme(case, n=10240):
+    rng = np.random.default_rng(11)
+    if case == "zeros":
+        x = np.zeros((4, n))
+    elif case == "constant":
+        x = np.stack([np.full(n, v) for v in (1, -1, 12345, -2**31)])
+    elif case == "int32 extremes":
+        x = rng.choice([-2**31, 2**31 - 1, -1, 0, 1], (6, n))
+        x[1] = np.where(np.arange(n) % 2, 2**31 - 1, -2**31)
+        x[2, : n // 2] = 0
+    elif case == "ties":
+        x = tie_plane(n)
+    else:
+        x = edge_plane(n)
+    return torch.from_numpy(x.astype(np.int32)).cuda()
+
+
+@pytest.mark.parametrize("case", ["zeros", "constant", "int32 extremes",
+                                  "ties", "fit edges"])
+def test_scans_rice_search_extremes(case):
+    """All-zero rows, constant rows, INT32_MIN and INT32_MAX mixed (code
+    lengths past 2^32, which wrap as the plain version's do), rows whose
+    lowest total two orders share (the first minimum: the lower order),
+    and finest partitions whose means lie within 0.3 of each edge of the
+    parameter fit (the finest order wins, so every fitted parameter is in
+    the output)."""
+    _require_card()
+    best = _rice_check(_rice_extreme(case))
+    if case == "zeros":
+        assert not torch.any(best)
+    if case == "fit edges":
+        assert torch.all(best == 10)
+
+
+def test_scans_rice_search_partition_means_are_reciprocal_products():
+    """The kernel takes a partition's mean as its sum times the reciprocal
+    of its length, as torch divides a CUDA tensor by a Python int; were
+    torch to divide instead, this fails before any parameter could."""
+    _require_card()
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(rng.integers(0, 1 << 45, 1 << 16).astype(
+        np.float64)).cuda()
+    for n in (10, 20, 40, 80, 160, 320, 640, 1280, 2560, 5120, 10240, 2205):
+        assert torch.equal(s / n, s * (1.0 / n))
+
+
+def test_scans_rice_search_in_a_cuda_graph():
+    """Captured once and replayed on new residuals, the kernel gives the
+    plain version's outputs on them."""
+    _require_card()
+    x = _rice_plane((64, 2), 10240, 1)
+    R.rice_search(x)  # load the library and set the kernel up, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        best, k2 = R.rice_search(x)
+    for seed in (2, 3):
+        x.copy_(_rice_plane((64, 2), 10240, seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        want_best, want_k2 = R._rice_search_plain(x)
+        assert torch.equal(best, want_best) and torch.equal(k2, want_k2)
