@@ -36,7 +36,8 @@ its batch is drained; the rare blocks whose residual is wider than W are
 fetched from it at full width. The host's phases open spans
 (utils/profiling.py: "encode", "encode.split", "encode.dispatch" with
 ".stage", ".launch" and ".fetch", "encode.drain" with ".wait",
-".overflow" and ".pack", "encode.tails", "encode.frame"), and
+".overflow" and ".pack", "encode.tails", "encode.frame", and with `-l`
+"encode.train" around the trainer, with its counters `train_*`), and
 `queue_waits` counts the copies that wait for all the work queued on the
 device (the overflow fetch's pageable upload and blocking read, the ridge
 terms' upload when a chain is built). With a device list (`devices=`,
@@ -48,6 +49,7 @@ from __future__ import annotations
 
 import functools
 import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, NamedTuple, Optional, Sequence
@@ -180,6 +182,15 @@ class TorchEncoder:
         self.overflow_rows = 0
         self.bytes_to_host = 0
         self.queue_waits = 0
+        # `-l` counters over the encoder's life: the trainer's calls (one a
+        # batch shard), its iterations, rows x iterations, the iterations
+        # of rows still active (the rest update nothing), and host seconds
+        # in the trainer (span "encode.train"; it syncs every iteration)
+        self.train_batches = 0
+        self.train_iterations = 0
+        self.train_row_iterations = 0
+        self.train_active_row_iterations = 0
+        self.train_s = 0.0
 
     def set_encode_parameter(self, parameter: EncodeParameter) -> None:
         parameter.validate_against(self.config)
@@ -364,7 +375,19 @@ class TorchEncoder:
             if train is not None:
                 # rows train independently, so padding rows (all zero:
                 # they stop after two iterations) change no real row
-                params, _iterations = train(out.sig, params, list(out.log2u))
+                with span("encode.train"):
+                    t0 = time.perf_counter()
+                    stops = torch.zeros(out.sig.shape[:-1],
+                                        dtype=torch.int64,
+                                        device=out.sig.device)
+                    params, iterations = train(out.sig, params,
+                                               list(out.log2u), stops)
+                    self.train_batches += 1
+                    self.train_iterations += iterations
+                    self.train_row_iterations += stops.numel() * iterations
+                    # the batch's one read of the count
+                    self.train_active_row_iterations += int(stops.sum())
+                    self.train_s += time.perf_counter() - t0
             return params
 
         def g2(out, params, W):

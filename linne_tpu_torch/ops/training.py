@@ -8,7 +8,10 @@ linne_internal.h:29-33). Here the whole [blocks, channels] population
 trains in one loop that carries (params, momentum, prev_loss, active):
 converged rows freeze through masked updates, as the reference's
 independent per-block stopping rule. The loop is Python, one host sync an
-iteration to test whether any row is still active.
+iteration to test whether any row is still active. A caller may pass an
+int64 tensor of the rows' shape, to which each iteration adds the rows
+still active on the device: each row's stop iteration, read once after
+the loop.
 
 Each row's unit count is frozen during training, so the parameters are
 gathered once into a canonical [u_max, order] per-segment layout
@@ -107,10 +110,11 @@ def _dense_forward_loss(params_list, layouts, sig):
 def make_train_fn(orders: Sequence[int], unit_choices,
                   max_iters: int, learning_rate: float, loss_eps: float,
                   alpha: float = 0.8):
-    """Returns train(sig, params_list, log2u_list) -> (trained
-    params_list, iterations run)."""
+    """Returns train(sig, params_list, log2u_list, stops=None) ->
+    (trained params_list, iterations run); `stops` (int64, sig's shape
+    without the samples) gains each row's active iterations."""
 
-    def train(sig, params_list, log2u_list):
+    def train(sig, params_list, log2u_list, stops=None):
         layouts = _dense_layouts(orders, unit_choices, log2u_list)
         params = [p.detach() for p in params_list]
         momentum = [torch.zeros_like(p) for p in params]
@@ -120,6 +124,8 @@ def make_train_fn(orders: Sequence[int], unit_choices,
                             device=sig.device)
         it = 0
         while it < max_iters and bool(torch.any(active)):
+            if stops is not None:
+                stops += active
             leaves = [p.requires_grad_() for p in params]
             with torch.enable_grad():
                 per_loss = _dense_forward_loss(leaves, layouts, sig)

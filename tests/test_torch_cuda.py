@@ -530,6 +530,62 @@ def test_af_learning_round_trip_on_card():
         assert np.array_equal(np.stack(Decoder().decode_whole(data)), sig)
 
 
+def test_learning_folder_repeats_its_bytes_on_card():
+    """-l at preset 7 on the card: a folder of 4 short tracks encoded twice
+    by one encoder, and once by a fresh one, gives the same bytes, which
+    decode bit for bit; the trainer's counters advance and its span
+    `encode.train` is in a profiler trace."""
+    _require_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from linne_tpu_torch.utils.profiling import SPAN_PREFIX, record_spans
+
+    spb = 10240
+    sigs = []
+    for i, n in enumerate((2 * spb + 700, 3 * spb, spb + 4000, 2 * spb)):
+        rng = np.random.default_rng(40 + i)
+        x = rng.normal(0, 1, (2, n + 15))
+        y = np.stack([np.convolve(x[c], np.exp(-np.arange(16) / 3.0),
+                                  "valid") for c in range(2)])
+        y = y / y.std() * 800
+        y[1] = 0.7 * y[0] + 0.3 * y[1]
+        sigs.append(np.clip(np.round(y), -32768, 32767).astype(np.int32))
+    param = EncodeParameter(
+        num_channels=2, bits_per_sample=16, sampling_rate=44100,
+        num_samples_per_block=spb, preset=7, ch_process_method=1,
+        enable_learning=True)
+    args = ([[s[0], s[1]] for s in sigs], [s.shape[1] for s in sigs])
+    names = ("train_batches", "train_iterations", "train_row_iterations",
+             "train_active_row_iterations", "train_s")
+    enc = TorchEncoder(batch_blocks=4, device="cuda")
+    enc.set_encode_parameter(param)
+    first = enc.encode_many(*args)
+    once = {k: getattr(enc, k) for k in names}
+    assert once["train_batches"] == 2  # 8 full blocks in batches of 4
+    assert 2 <= once["train_iterations"] <= 2 * 2000
+    assert (once["train_batches"] * 2 <= once["train_active_row_iterations"]
+            <= once["train_row_iterations"])
+    assert once["train_s"] > 0
+    previous = record_spans(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            second = enc.encode_many(*args)
+            torch.cuda.synchronize()
+    finally:
+        record_spans(previous)
+    assert second == first
+    assert SPAN_PREFIX + "encode.train" in {e.key for e in
+                                            prof.key_averages()}
+    for k in names[:-1]:  # the same work again
+        assert getattr(enc, k) == 2 * once[k]
+    fresh = TorchEncoder(batch_blocks=4, device="cuda")
+    fresh.set_encode_parameter(param)
+    assert fresh.encode_many(*args) == first
+    for sig, data in zip(sigs, first):
+        assert np.array_equal(np.stack(Decoder().decode_whole(data)), sig)
+
+
 # -- block data parallelism over a device list ---------------------------------
 
 # a CPU entry beside the card catches tensors made on the wrong device; two
